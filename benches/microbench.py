@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Microbenchmarks mirroring the reference's nightly bench set
-(``/root/reference/benches/lzma.rs:62-129``):
+(lzma-rs ``benches/lzma.rs:62-129``):
 
   compress_empty / decompress_after_compress_empty
   compress_hello / decompress_after_compress_hello
   compress_65536 / decompress_after_compress_65536
-  decompress_big_file (foo.txt.lzma)
+  decompress_big_file (foo.txt.lzma from the seeded corpus)
   decompress_stream_big_file (push-style Stream)
   decompress_huge_dict (35-byte stream, dict 0x7F7F7F7F)
 
@@ -19,9 +19,8 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
-REF_FILES = "/root/reference/tests/files"
-
 import lzma_rs_tpu
+from lzma_rs_tpu import corpus
 from lzma_rs_tpu.stream import Stream
 
 HUGE_DICT_STREAM = bytes.fromhex(
@@ -30,7 +29,7 @@ HUGE_DICT_STREAM = bytes.fromhex(
 
 
 def bench(name, fn, min_time=0.5):
-    # warm up + calibrate
+    # warm up
     fn()
     n, t = 0, 0.0
     t0 = time.perf_counter()
@@ -42,8 +41,7 @@ def bench(name, fn, min_time=0.5):
 
 
 def main():
-    foo = open(os.path.join(REF_FILES, "foo.txt"), "rb").read()
-    foo_lzma = open(os.path.join(REF_FILES, "foo.txt.lzma"), "rb").read()
+    foo_lzma = corpus.golden("foo.txt.lzma")
 
     empty_c = lzma_rs_tpu.lzma_compress(b"")
     hello_c = lzma_rs_tpu.lzma_compress(b"Hello world")

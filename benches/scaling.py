@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
-"""Host-scaling efficiency harness (BASELINE.md metric: >= 80% efficiency
-1 -> N hosts).
+"""Host-scaling harness for the multi-process decode (``multihost.py``).
 
-Runs the multi-host block-parallel decode with 1 and N JAX processes on
-this machine (CPU backend; gloo over loopback stands in for DCN) and
-reports per-host throughput and scaling efficiency. On a real multi-host
-slice the same script runs unmodified with the cluster's coordinator
-address.
+Runs the multi-host block-parallel decode with 1, 2 and 4 JAX processes on
+this machine and reports per-host throughput and scaling efficiency. The
+workers force the CPU backend (``JAX_PLATFORMS=cpu``; gloo over loopback
+stands in for the network): several processes must never open one GPU,
+since each JAX process reserves most of a card's memory.
 
 Note: on a single machine the N processes share the physical cores, so
 wall-clock "scaling" here validates correctness+overhead of the protocol,
@@ -24,11 +23,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 WORKER = r"""
 import os, sys, time
+# CPU only: one process per card at most, and these are several
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["JAX_PLATFORM_NAME"] = "cpu"
 proc, nproc, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 import jax
-jax.config.update("jax_platforms", "cpu")
 if nproc > 1:
     jax.distributed.initialize(
         coordinator_address="127.0.0.1:9733", num_processes=nproc,
@@ -81,12 +79,9 @@ def main():
     sys.path.insert(0, HERE)
     import lzma_rs_tpu
 
-    # corpus: reuse the bench corpus if present, else foo.txt x 32
-    src = os.path.join(HERE, ".bench", "corpus.bin")
-    if os.path.exists(src):
-        data = open(src, "rb").read()[: 32 << 20]
-    else:
-        data = open("/root/reference/tests/files/foo.txt", "rb").read() * 64
+    from lzma_rs_tpu import corpus
+
+    data = corpus.mixed(32 << 20, 0)
     c = lzma_rs_tpu.xz_compress(data, block_size=1 << 21, check_method=4)
     with tempfile.NamedTemporaryFile(delete=False, suffix=".xz") as f:
         f.write(c)
@@ -111,8 +106,7 @@ def main():
             "construction — decode_s measures the per-host compute "
             "share (ideal: t1/N per host), gather_wait_s the residual "
             "communication NOT hidden behind decode (gloo loopback is "
-            "~10 MB/s, three orders below real DCN; on hardware this "
-            "term shrinks proportionally)"
+            "~10 MB/s; a real network moves far more)"
         ),
         "wall_s": {str(n): round(t, 3) for n, t in curve.items()},
         "decode_s": {str(n): round(t, 3) for n, t in dec.items()},

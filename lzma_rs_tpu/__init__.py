@@ -1,14 +1,14 @@
-"""lzma_rs_tpu — a TPU-native LZMA / LZMA2 / XZ codec framework.
+"""lzma_rs_tpu — a GPU-accelerated LZMA / LZMA2 / XZ codec framework.
 
 A from-scratch re-design of the capabilities of the ``lzma-rs`` library
-(reference at ``/root/reference``) for TPU hardware: the byte-serial
-reference decode loop becomes lane-parallel JAX/Pallas kernels over the
-format's natural parallel boundaries (LZMA2 dict-reset segments, `.xz`
-blocks), scheduled across chips with ``jax.sharding``; the host runtime
+for an accelerator: the byte-serial reference decode loop runs once per
+independent unit of the format (LZMA2 dict-reset segments, `.xz`
+blocks), one unit per GPU thread through a CUDA kernel called with
+``jax.ffi``, split across devices with ``shard_map``; the host runtime
 (container parsing, streaming, checksums) has a native C++ fast path.
 
 Public API mirrors the reference's eight free functions
-(``/root/reference/src/lib.rs:44-110``):
+(the reference's ``src/lib.rs:44-110``):
 
 - :func:`lzma_decompress`, :func:`lzma_decompress_with_options`
 - :func:`lzma_compress`, :func:`lzma_compress_with_options`
@@ -38,10 +38,10 @@ __version__ = "0.1.0"
 
 _Input = Union[bytes, bytearray, memoryview, BinaryIO]
 
-# Decode backend: "auto" picks the best available (native C++ scalar for
-# small/serial work, TPU lane-parallel for bulk multi-segment streams);
-# "spec" forces the pure-Python executable spec; "native" forces C++;
-# "tpu" forces the JAX path.
+# Decode backend: "auto" picks the best available (native C++ for
+# small/serial work, the device engine for bulk multi-segment streams on
+# a CUDA GPU); "spec" forces the pure-Python executable spec; "native"
+# forces C++; "device" forces the device engine (backends.py).
 BACKEND = os.environ.get("LZMA_RS_TPU_BACKEND", "auto")
 
 
@@ -121,7 +121,7 @@ def lzma2_compress(
     ``level`` 1-9 = real compression (beyond the reference's
     uncompressed-chunk writer); 0/None = stored chunks. ``props`` is a raw
     LZMA props byte or -1 for lc=3 lp=0 pb=2. ``dist_cap`` (0 = uncapped)
-    bounds match distances for the TPU ring-window decode profile."""
+    bounds match distances (the ``tpu_profile`` archive shape)."""
     from lzma_rs_tpu.encode.lzma2_enc import lzma2_compress as _enc
 
     return _emit(
@@ -162,13 +162,11 @@ def xz_compress(
     greedy encoder) or stored chunks (0/None, the reference's writer).
     ``props`` is a raw LZMA props byte (-1 = lc=3 lp=0 pb=2).
 
-    ``tpu_profile=True`` targets the VMEM TPU decode kernel
-    (ops/vmem_decoder.py): small independent blocks (dict-reset segments
-    fit the kernel's VMEM window), lc=0 (a 768-entry literal table
-    instead of 6144, tripling kernel step rate), and capped match
-    distances (``dist_cap``) so the decode's window reads hit the
-    kernel's VMEM-resident recent-history ring — a few % larger archive
-    that decodes dramatically faster on TPU."""
+    ``tpu_profile=True`` writes the many-small-lanes shape a parallel
+    decoder was first tuned for: 8 KiB independent blocks, lc=0 (a
+    768-entry literal table instead of 6144) and match distances capped
+    at 2048 (``dist_cap``). It is a few % larger than the default; its
+    decode speed on the GPU is not measured yet."""
     from lzma_rs_tpu.encode.xz_enc import xz_compress as _enc
 
     if tpu_profile:
@@ -177,7 +175,7 @@ def xz_compress(
         if props < 0:
             props = 0 + 9 * (0 + 5 * 2)  # lc=0 lp=0 pb=2
         if dist_cap == 0:
-            dist_cap = 2048  # ring-window bucket (ops/vmem_decoder.py)
+            dist_cap = 2048
     return _emit(
         _enc(_as_bytes(input), block_size=block_size,
              check_method=check_method, level=level, props=props,

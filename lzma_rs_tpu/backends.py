@@ -4,16 +4,17 @@ Three engines implement the same decode semantics:
 
 - ``spec``: the pure-Python executable specification (oracle),
 - ``native``: the C++ scalar runtime (fast host path, streaming engine),
-- ``tpu``: the lane-parallel JAX/Pallas runtime (bulk path; shards
-  independent LZMA2 segments / .xz blocks across vector lanes and devices).
+- ``device``: the segment-parallel decode kernel through ``jax.ffi``
+  (bulk path; one independent LZMA2 segment / .xz block per lane, lanes
+  split across the local devices).
 
-``auto`` routes per stream: when the default JAX backend is a real TPU
-and every dict-reset segment fits the VMEM kernel's static budget
-(``runtime.check_vmem_eligibility``), the stream decodes on the TPU
-runtime (engine ``tpu-vmem``); otherwise the native host engine if
-built; otherwise spec. Raw single-stream LZMA always prefers the host
-(one stream = one lane = no parallelism for the TPU to exploit). All
-engines are cross-validated bit-for-bit in the test suite.
+``LZMA_RS_TPU_BACKEND`` selects one (``auto`` by default). ``auto``
+routes per stream (``runtime._resolve_auto_engine``): on a CUDA GPU a
+stream with enough lanes and output decodes on the device engine;
+otherwise the native host engine if built; otherwise spec. Raw
+single-stream LZMA prefers the host under ``auto`` (one stream = one
+lane = no parallelism for the card to exploit). All engines are
+cross-validated bit-for-bit in the test suite.
 """
 
 from __future__ import annotations
@@ -27,8 +28,16 @@ from lzma_rs_tpu.utils.cursor import ByteCursor
 from lzma_rs_tpu.utils.options import Options
 
 
+BACKENDS = ("auto", "spec", "native", "device")
+
+
 def _backend() -> str:
-    return os.environ.get("LZMA_RS_TPU_BACKEND", "auto")
+    backend = os.environ.get("LZMA_RS_TPU_BACKEND", "auto")
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"LZMA_RS_TPU_BACKEND={backend!r}: expected one of {BACKENDS}"
+        )
+    return backend
 
 
 def _native():
@@ -45,7 +54,7 @@ def lzma_decode(data: bytes, options: Options) -> bytes:
     cursor = ByteCursor(data)
     params = read_header(cursor, options)
     backend = _backend()
-    if backend == "tpu":
+    if backend == "device":
         p = params.properties
         if (
             params.unpacked_size is not None
@@ -71,44 +80,25 @@ def lzma_decode(data: bytes, options: Options) -> bytes:
 def lzma2_decode(data: bytes) -> bytes:
     """LZMA2 chunk-stream decode via the selected backend."""
     backend = _backend()
-    if backend == "auto":
+    if backend == "device" or (
+        backend in ("auto", "native") and _native() is not None
+    ):
         from lzma_rs_tpu.parallel import runtime
 
-        if _native() is not None or runtime._on_tpu():
-            return runtime.lzma2_decode(data, engine="auto")
-    elif backend == "native":
-        lib = _native()
-        if lib is not None:
-            from lzma_rs_tpu.parallel import runtime
-
-            return runtime.lzma2_decode(data, engine="native")
-    elif backend == "tpu":
-        from lzma_rs_tpu.parallel import runtime
-
-        return runtime.lzma2_decode(data, engine="tpu")
+        return runtime.lzma2_decode(data, engine=backend)
     return Lzma2Decoder().decompress(ByteCursor(data))
 
 
 def xz_decode(data: bytes) -> bytes:
     """.xz container decode via the selected backend."""
     backend = _backend()
-    if backend == "tpu":
+    if backend == "device" or (
+        backend in ("auto", "native") and _native() is not None
+    ):
+        # the device engine, or block/segment-parallel host cores
         from lzma_rs_tpu.parallel import runtime
 
-        return runtime.xz_decode(data, engine="tpu")
-    if backend == "auto":
-        from lzma_rs_tpu.parallel import runtime
-
-        if _native() is not None or runtime._on_tpu():
-            # TPU when eligible, else block/segment-parallel host cores
-            return runtime.xz_decode(data, engine="auto")
-    elif backend == "native":
-        lib = _native()
-        if lib is not None:
-            # segment/block-parallel across host cores via the flat decoder
-            from lzma_rs_tpu.parallel import runtime
-
-            return runtime.xz_decode(data, engine="native")
+        return runtime.xz_decode(data, engine=backend)
     return xz_decode_stream(ByteCursor(data))
 
 

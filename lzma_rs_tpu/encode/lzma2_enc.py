@@ -4,7 +4,7 @@ Two modes:
 
 - ``level=0`` / no native library: uncompressed chunks only — the exact
   capability mirror of the reference encoder
-  (``/root/reference/src/encode/lzma2.rs:4-26``): <=64 KiB chunks, control
+  (lzma-rs ``src/encode/lzma2.rs:4-26``): <=64 KiB chunks, control
   ``0x01`` (uncompressed + dict reset), ``(n-1)`` u16 BE, raw bytes,
   ``0x00`` terminator.
 - ``level>=1`` (default 6): real compression via the native greedy
@@ -41,14 +41,11 @@ def lzma2_compress(
     dist_cap: int = 0,
 ) -> bytes:
     """``chunk_size`` sets unpacked bytes per LZMA2 chunk (256..65536).
-    Smaller chunks cost a little ratio but bound the per-chunk work unit
-    (the VMEM TPU kernel wants segments <= its window). ``props`` is a raw
-    LZMA props byte (lc + 9*(lp + 5*pb)) or -1 for the default lc=3 lp=0
-    pb=2; small lc+lp shrinks the literal-probability table the TPU kernel
-    must keep in VMEM (see ops/vmem_decoder.py). ``dist_cap`` (0 =
-    uncapped) bounds match distances so the archive decodes on the TPU
-    ring-window kernel, which keeps only the last ``dist_cap`` bytes of
-    history resident."""
+    Smaller chunks cost a little ratio but bound the per-chunk work unit.
+    ``props`` is a raw LZMA props byte (lc + 9*(lp + 5*pb)) or -1 for the
+    default lc=3 lp=0 pb=2; small lc+lp shrinks the literal-probability
+    table a decoder keeps per lane. ``dist_cap`` (0 = uncapped) bounds
+    match distances to the last ``dist_cap`` bytes of history."""
     data = bytes(data)
     if props != -1:
         # Validate here so callers get an error instead of the native

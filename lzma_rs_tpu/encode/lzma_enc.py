@@ -1,7 +1,7 @@
 """Literal-only LZMA encoder.
 
 Capability mirror of the reference "dumb" encoder
-(``/root/reference/src/encode/dumbencoder.rs:6-140``): every input byte is
+(lzma-rs ``src/encode/dumbencoder.rs:6-140``): every input byte is
 coded as a literal with hard-coded properties ``lc=3, lp=0, pb=2``, dict
 size ``0x0080_0000``, 8 literal contexts (``prev_byte >> 5``), and an
 optional end-of-stream marker (match with distance 0xFFFF_FFFF) when the

@@ -1,7 +1,7 @@
 """Adaptive binary range encoder.
 
 Mirror image of the decoder in ``models/spec.py``; behavioral spec from the
-reference encoder (``/root/reference/src/encode/rangecoder.rs:7-144``):
+reference encoder (lzma-rs ``src/encode/rangecoder.rs:7-144``):
 64-bit ``low`` with cache/cache-size carry propagation, ``encode_bit`` with
 the same 11-bit adaptive probability update as the decoder, and a 5-byte
 flush on ``finish``. The bit-tree and length encoders (test-only in the

@@ -1,6 +1,6 @@
 """`.xz` container encoder.
 
-Mirrors the reference writer (``/root/reference/src/encode/xz.rs:9-162``)
+Mirrors the reference writer (lzma-rs ``src/encode/xz.rs:9-162``)
 — stream header, block(s), index, footer, check method None — but
 generalized to N blocks: large inputs are split into independent blocks
 (one LZMA2 stream each), which makes *encode* block-parallel and, more

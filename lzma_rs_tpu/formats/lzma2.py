@@ -1,12 +1,12 @@
 """LZMA2 chunk-layer scanning.
 
 The reference decodes LZMA2 with a sequential chunk loop
-(``/root/reference/src/decode/lzma2.rs:59-78``). Because every chunk header
+(lzma-rs ``src/decode/lzma2.rs:59-78``). Because every chunk header
 carries exact packed/unpacked sizes (``:128-136``), the chunk table of a
 stream can be recovered *without decoding any payload* — a cheap host-side
-scan. That table is the foundation of the TPU-native design: chunks between
+scan. That table is the foundation of the parallel design: chunks between
 dictionary resets form independent "segments" that decode in parallel across
-vector lanes / chips, while chunks within a segment share a window and
+lanes / devices, while chunks within a segment share a window and
 probability state and stay sequential.
 
 Chunk grammar (decode/lzma2.rs:59-136):

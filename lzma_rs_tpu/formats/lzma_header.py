@@ -1,7 +1,7 @@
 """Raw LZMA 13-byte header parsing/serialization.
 
 Behavioral spec from the reference ``LzmaParams::read_header``
-(``/root/reference/src/decode/lzma.rs:96-161``):
+(lzma-rs ``src/decode/lzma.rs:96-161``):
 
 - props byte ``p < 225``; ``lc = p % 9``, ``lp = (p/9) % 5``, ``pb = p/45``,
 - dict size: u32 LE, clamped up to at least ``0x1000``,

@@ -1,6 +1,6 @@
 """`.xz` container parsing and writing (host side).
 
-Behavioral spec from the reference (`/root/reference/src/decode/xz.rs:18-464`,
+Behavioral spec from the reference (lzma-rs `src/decode/xz.rs:18-464`,
 `src/xz/{mod,header,footer}.rs`, `src/encode/xz.rs:9-162`):
 
 - stream header: magic ``FD 37 7A 58 5A 00``, 2-byte stream flags

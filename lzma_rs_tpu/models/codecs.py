@@ -1,7 +1,7 @@
 """Host-side (scalar) LZMA / LZMA2 / XZ decoders built on the executable spec.
 
 These mirror the reference's sequential decode paths exactly (outputs and
-error strings) and serve as (a) the oracle for the TPU kernels, (b) the
+error strings) and serve as (a) the oracle for the device kernels, (b) the
 fallback for inputs that cannot use the parallel runtime (e.g. raw LZMA with
 ``lc+lp > 4``), and (c) the engine behind the push-style streaming API.
 
@@ -169,7 +169,7 @@ def xz_decode_stream(cursor: ByteCursor, decode_lzma2=None) -> bytes:
     """Sequential `.xz` stream decode (decode/xz.rs:18-94).
 
     ``decode_lzma2`` may override the LZMA2 payload decoder (the parallel
-    runtime passes its TPU path); it receives the cursor positioned at the
+    runtime passes the native chunk loop); it receives the cursor at the
     payload and must consume exactly the payload bytes, returning the
     decompressed block content.
     """

@@ -1,10 +1,10 @@
 """Executable specification of the LZMA decoder (scalar, host-side).
 
-This is the oracle for the TPU kernels: a byte-at-a-time decoder whose
+This is the oracle for the device kernels: a byte-at-a-time decoder whose
 behavior (outputs AND error strings) matches the reference implementation
-(``/root/reference/src/decode/{rangecoder,lzma,lzbuffer}.rs``). It is
+(lzma-rs ``src/decode/{rangecoder,lzma,lzbuffer}.rs``). It is
 deliberately simple and slow; bulk decoding goes through the native C++
-runtime or the lane-parallel JAX kernels, both of which are validated
+runtime or the device engine, both of which are validated
 bit-for-bit against this spec and against golden corpus files.
 
 Algorithmic spec (file:line refer to the reference):

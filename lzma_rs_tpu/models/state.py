@@ -1,8 +1,8 @@
 """Decoder-state layout: one flat SoA probability table per decode lane.
 
 The reference scatters its probability model across many small arrays on the
-``DecoderState`` struct (``/root/reference/src/decode/lzma.rs:165-185``).
-For the TPU-native design every probability lives in ONE flat ``uint16``
+``DecoderState`` struct (lzma-rs ``src/decode/lzma.rs:165-185``).
+For the lane-parallel design every probability lives in ONE flat ``uint16``
 vector per decode lane, so that the lane-parallel kernel can address any
 probability with a single computed index and the whole model state is a
 plain JAX pytree (checkpoint = save the arrays; LZMA2 reset = refill with

@@ -7,7 +7,7 @@
 // symbol — stable across loads of the same .so build, so arc ids can be
 // persisted in the fuzz ledger alongside a build hash. Mirrors the
 // reference's libFuzzer instrumentation of its decoder under test
-// (/root/reference/fuzz/fuzz_targets/, fuzz/README.md:3-8) with a
+// (lzma-rs fuzz/fuzz_targets/, fuzz/README.md:3-8) with a
 // poor-man's in-process query API instead of the libFuzzer driver.
 
 #include <cstdint>

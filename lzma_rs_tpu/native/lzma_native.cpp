@@ -2,12 +2,12 @@
 //
 // This is the C++ counterpart of the Python executable spec in
 // models/spec.py — the fast host path for serial work (single segments,
-// streaming) while bulk decode goes to the TPU kernels. Behavior (outputs
+// streaming) while bulk decode goes to the device engine. Behavior (outputs
 // and error strings) mirrors the reference implementation:
-//   range coder:      /root/reference/src/decode/rangecoder.rs:7-152
-//   state machine:    /root/reference/src/decode/lzma.rs:165-593
-//   output windows:   /root/reference/src/decode/lzbuffer.rs:4-321
-//   LZMA2 chunk loop: /root/reference/src/decode/lzma2.rs:11-230
+//   range coder:      lzma-rs src/decode/rangecoder.rs:7-152
+//   state machine:    lzma-rs src/decode/lzma.rs:165-593
+//   output windows:   lzma-rs src/decode/lzbuffer.rs:4-321
+//   LZMA2 chunk loop: lzma-rs src/decode/lzma2.rs:11-230
 //
 // Exposed C ABI (see native/loader.py):
 //   lrt_crc64_update, lrt_lzma_decode, lrt_lzma2_decode,
@@ -1376,7 +1376,7 @@ int lrt_lzma_decode(const char* data, size_t n, size_t payload_off, int lc,
 
 // Real LZMA2 compression (greedy match-finding). level 1..9 maps to match
 // finder depth; chunk_size (clamped to [256, 65536]) sets the unpacked
-// bytes per LZMA2 chunk (smaller chunks suit the VMEM TPU decode kernel).
+// bytes per LZMA2 chunk.
 // Output is a complete LZMA2 chunk stream (0x00-terminated).
 extern "C++" {
 template <bool kBt>
@@ -1409,9 +1409,8 @@ int lrt_lzma2_compress(const char* data, size_t n, int level,
   if (props < 0 || props >= 225 ||
       props % 9 + (props / 9) % 5 > 4)
     props = 3 + 9 * (0 + 5 * 2);
-  // dist_cap (0 = uncapped) bounds match distances: the TPU ring-window
-  // kernel keeps only the last dist_cap bytes of history in VMEM, so
-  // archives encoded with a cap decode on the fast ring path.
+  // dist_cap (0 = uncapped) bounds match distances to the last dist_cap
+  // bytes of history (the tpu_profile archive shape).
   std::string out;
   out.reserve(n / 3 + 64);
   if (n > 0) {
@@ -2462,7 +2461,7 @@ static std::string encode_lzma_chunk(const uint8_t* block, size_t start,
     size_t limit = end - pos;
     if (limit > kMaxMatchLen) limit = kMaxMatchLen;
     // window = block start .. pos, capped by the declared dict size and
-    // the optional ring cap (TPU ring-window decode profile)
+    // the optional distance cap (dist_cap)
     size_t max_dist = pos < kEncDictSize ? pos : kEncDictSize;
     if (dist_cap && max_dist > dist_cap) max_dist = dist_cap;
 
@@ -2858,6 +2857,14 @@ int lrt_lzma2_decode_segment(const char* data, size_t n,
       set_err(err_buf, e);
       return e.code;
     }
+    if (rc.pos != rc.end) {
+      // the reference reads the next chunk header where the range coder
+      // stopped; a chunk that stops early is corrupt (callers replay the
+      // stream sequentially for the reference's own error)
+      Err w{1, "LZMA2 chunk ended before its packed size"};
+      set_err(err_buf, w);
+      return 1;
+    }
   }
   return 0;
 }
@@ -2869,7 +2876,7 @@ int lrt_lzma2_decode_segment(const char* data, size_t n,
 // model, window, reps) persists across calls exactly as in the one-shot
 // chunk loop above. This powers the chunk-granular LZMA2/.xz streaming
 // API — a capability beyond the reference, which only streams raw LZMA
-// (/root/reference/src/decode/stream.rs).
+// (lzma-rs src/decode/stream.rs).
 // ---------------------------------------------------------------------------
 
 struct LrtL2Stream {

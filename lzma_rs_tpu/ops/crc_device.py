@@ -1,21 +1,17 @@
-"""On-device CRC32 / CRC64-XZ (block-check verification on TPU).
+"""On-device CRC32 / CRC64-XZ for block-check verification.
 
 The reference computes checks byte-serially through table lookups
-(``/root/reference/src/xz/crc.rs``); tables mean gathers, which TPUs hate.
-This kernel exploits that CRC is **linear over GF(2)**:
+(lzma-rs ``src/xz/crc.rs``). CRC is **linear over GF(2)**, so a chunk's
+raw register is a binary matrix product: unpack the chunk's bits, multiply
+by a fixed weight matrix (one int8 ``dot_general`` with int32
+accumulation, exact since every sum is at most ``CHUNK * 8``), and take
+the parity. The host folds the per-chunk registers with precomputed
+zero-advance matrices ``Z_n`` ("advance the register by n zero bytes"),
+applies the init/xorout correction and absorbs the tail that does not
+fill a chunk.
 
-1. the stream is split into uniform chunks, one vector lane per chunk;
-   each lane runs the table-free bitwise recurrence
-   ``crc = (crc >> 1) ^ (POLY & -(crc & 1))`` — pure elementwise VPU ops,
-   8 unrolled bit-steps per byte, no memory indirection,
-2. per-chunk raw registers are folded pairwise in a log-depth tree using
-   precomputed zero-advance matrices ``Z_n`` ("advance register by n zero
-   bytes"), applied as 32/64 select-XOR steps — still elementwise,
-3. the host applies the init/xorout affine correction and absorbs the
-   non-uniform tail with the native engine.
-
-CRC64 is carried as (lo, hi) uint32 pairs — TPUs have no native u64.
-
+Plain JAX: XLA lowers the product to the GPU's int8 matrix units (the
+runtime uses it only on a CUDA device, ``runtime._xz_decode_parallel``).
 Verified bit-exact against zlib / the native slice-by-8 implementation for
 all lengths (tests/test_crc_device.py).
 """
@@ -87,97 +83,14 @@ def combine_raw(poly: int, width: int, left: int, right: int, right_len: int) ->
 
 
 # ---------------------------------------------------------------------------
-# Device kernels.
-# ---------------------------------------------------------------------------
-
-
-def _crc32_chunks(data2d):
-    """Raw CRC32 register per lane over [CHUNK, L] bytes (init 0).
-
-    Layout is transposed (byte-index major) so each iteration loads one
-    contiguous row — a strided [:, j] column read would be a gather."""
-    import jax
-    import jax.numpy as jnp
-
-    C, L = data2d.shape
-    poly = jnp.uint32(CRC32_POLY)
-
-    def byte_step(j, crc):
-        b = data2d[j, :].astype(jnp.uint32)
-        crc = crc ^ b
-        for _ in range(8):
-            mask = jnp.where((crc & 1) == 1, poly, jnp.uint32(0))
-            crc = (crc >> 1) ^ mask
-        return crc
-
-    return jax.lax.fori_loop(0, C, byte_step, jnp.zeros((L,), jnp.uint32))
-
-
-def _crc64_chunks(data2d):
-    """Raw CRC64 register per lane as (lo, hi) uint32 pairs ([CHUNK, L])."""
-    import jax
-    import jax.numpy as jnp
-
-    C, L = data2d.shape
-    plo = jnp.uint32(CRC64_POLY & 0xFFFFFFFF)
-    phi = jnp.uint32(CRC64_POLY >> 32)
-
-    def byte_step(j, carry):
-        lo, hi = carry
-        b = data2d[j, :].astype(jnp.uint32)
-        lo = lo ^ b
-        for _ in range(8):
-            bit = (lo & 1) == 1
-            lo = (lo >> 1) | (hi << 31)
-            hi = hi >> 1
-            lo = jnp.where(bit, lo ^ plo, lo)
-            hi = jnp.where(bit, hi ^ phi, hi)
-        return lo, hi
-
-    z = jnp.zeros((L,), jnp.uint32)
-    return jax.lax.fori_loop(0, C, byte_step, (z, z))
-
-
-def _tree_combine(vals_lo, vals_hi, poly, width, chunk_len):
-    """Fold [L] per-chunk raw registers (stream order) into one."""
-    import jax.numpy as jnp
-
-    L = vals_lo.shape[0]
-    level_len = chunk_len
-    while L > 1:
-        half = L // 2
-        left_lo, right_lo = vals_lo[0::2], vals_lo[1::2]
-        left_hi, right_hi = (vals_hi[0::2], vals_hi[1::2]) if vals_hi is not None else (None, None)
-        cols = zero_advance_matrix(poly, width, level_len)
-        acc_lo = right_lo
-        acc_hi = right_hi
-        x_lo, x_hi = left_lo, left_hi
-        for i in range(width):
-            col = cols[i]
-            if i < 32:
-                bit = (x_lo >> i) & 1
-            else:
-                bit = (x_hi >> (i - 32)) & 1
-            sel = bit == 1
-            acc_lo = jnp.where(sel, acc_lo ^ jnp.uint32(col & 0xFFFFFFFF), acc_lo)
-            if acc_hi is not None:
-                acc_hi = jnp.where(sel, acc_hi ^ jnp.uint32(col >> 32), acc_hi)
-        vals_lo, vals_hi = acc_lo, acc_hi
-        L = half
-        level_len *= 2
-    return vals_lo, vals_hi
-
-
-# ---------------------------------------------------------------------------
-# MXU formulation: CRC is linear over GF(2), so the raw register of a chunk
-# is a binary matrix product:
+# Matrix formulation: CRC is linear over GF(2), so the raw register of a
+# chunk is a binary matrix product:
 #
 #   raw(chunk) = XOR_j Z_{C-1-j}( T(byte_j) ),   T linear in the byte's bits
 #   => raw_bits = bits(chunk) [C*8]  x  W [C*8, width]   (mod 2)
 #
-# Bit-unpack the bytes, run one int8 matmul on the MXU (exact: sums < 2^24),
-# take the parity. This turns the byte-serial reference loop
-# (src/xz/crc.rs tables) into the machine's native operation.
+# Bit-unpack the bytes, run one int8 matmul (exact: sums <= C*8 < 2^31),
+# take the parity.
 # ---------------------------------------------------------------------------
 
 
@@ -224,7 +137,7 @@ def _mat_compose_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _jitted_crc_matmul(width: int, L: int):
-    """Device part only: bit-unpack + one int8 MXU matmul + parity pack.
+    """Device part only: bit-unpack + one int8 matmul + parity.
 
     The log-tree fold over per-chunk registers runs on the host (numpy) —
     it is O(width * L) trivial work and would otherwise dominate compile
@@ -247,22 +160,14 @@ def _jitted_crc_matmul(width: int, L: int):
             jnp.int8
         )
         bits = bits.reshape(L, CHUNK * 8)
-        # bf16 x bf16 -> f32 accumulation: 0/1 operands make every partial
-        # product exact and sums stay < 2^24, so the f32 result is exact.
-        # (int8->int32 dot produced parity-corrupting partial sums on TPU
-        # at some shapes; f32 accumulation is the MXU's native exact path.)
+        # int8 0/1 operands, int32 accumulation: every sum is exact
         y = jax.lax.dot_general(
-            bits.astype(jnp.bfloat16), W.astype(jnp.bfloat16),
+            bits, W,
             dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
+            preferred_element_type=jnp.int32,
         )  # [L, width]
-        parity = (y.astype(jnp.int32) & 1).astype(jnp.uint8)
-        # Return the parity matrix; the register pack happens on the host.
-        # (The obvious shift-OR pack loop miscompiles on the experimental
-        # TPU platform: bits/y/parity verified exact on device while the
-        # packed word came back wrong. Stage-by-stage evidence in
-        # CLAUDE.md "Open issues".)
-        return parity  # [L, width] of 0/1
+        # the parity matrix; the host packs it into registers
+        return (y & 1).astype(jnp.uint8)  # [L, width] of 0/1
 
     return jax.jit(fn)
 
@@ -289,28 +194,6 @@ def _tree_combine_host(regs: np.ndarray, poly: int, width: int, chunk_len: int) 
         vals = acc
         level_len *= 2
     return int(vals[0])
-
-
-@functools.lru_cache(maxsize=32)
-def _jitted_crc(width: int, L: int):
-    import jax
-
-    from lzma_rs_tpu.parallel.runtime import _enable_compile_cache
-
-    _enable_compile_cache()
-
-    poly = CRC32_POLY if width == 32 else CRC64_POLY
-
-    def fn(data2d):
-        if width == 32:
-            regs = _crc32_chunks(data2d)
-            lo, _ = _tree_combine(regs, None, poly, width, CHUNK)
-            return lo[0]
-        lo, hi = _crc64_chunks(data2d)
-        lo, hi = _tree_combine(lo, hi, poly, width, CHUNK)
-        return lo[0], hi[0]
-
-    return jax.jit(fn)
 
 
 def _device_raw(data: bytes, width: int) -> tuple:

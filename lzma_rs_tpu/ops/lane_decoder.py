@@ -1,8 +1,8 @@
-"""Lane-parallel LZMA decoder: the TPU compute path.
+"""Lane-parallel LZMA decoder in plain XLA (engine ``xla``).
 
 The reference decodes one bit at a time through a loop-carried dependency
-(``/root/reference/src/decode/rangecoder.rs:93-120``) — unvectorizable
-within one stream. The TPU-native design restructures the decoder as a
+(lzma-rs ``src/decode/rangecoder.rs:93-120``) — unvectorizable
+within one stream. This decoder restructures it as a
 **micro-op state machine over independent lanes**: every vector lane decodes
 one independent work unit (an LZMA2 dict-reset segment / `.xz` block /
 raw-LZMA stream), and all lanes execute the same micro-op per iteration —
@@ -28,7 +28,8 @@ Memory model:
   reset iteration).
 
 The whole kernel is a ``lax.while_loop`` under ``jit``; it runs identically
-on CPU (tests, virtual-device sharding) and TPU.
+on the CPU (tests) and the GPU, where it is the plain comparison for the
+device engine's CUDA kernel (``ops/segment_decoder.py``).
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ ERR_SIZE = 4       # Expected unpacked size of N but decompressed to M
 ERR_EOS_EXTRA = 5  # EOS marker but more bytes are available
 ERR_SHORT = 6      # chunk too short for range-coder init
 ERR_MATCHDIST = 7  # matched-literal distance beyond output
+ERR_END = 8        # chunk's range coder stopped before its packed end
 
 _U32 = jnp.uint32
 _I32 = jnp.int32
@@ -263,6 +265,12 @@ def decode_lanes(
             chunk_done = (
                 mask & ~over & (size_known == 1) & (outp_v == R["outend"])
             )
+            # the reference reads the next chunk header where the range
+            # coder stopped: a chunk that stops early is corrupt
+            early = chunk_done & (inp_v != R["inend"])
+            err = jnp.where(early & (err == ERR_NONE), ERR_END, err)
+            node = jnp.where(early, N_ERROR, node)
+            chunk_done = chunk_done & ~early
             node = jnp.where(chunk_done, N_CHUNK, node)
             fin = (
                 mask & ~over & (size_known == 0)

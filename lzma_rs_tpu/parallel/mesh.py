@@ -3,10 +3,10 @@
 The codec's only semantic parallel axis is "independent work units"
 (LZMA2 dict-reset segments / `.xz` blocks), so the mesh is 1-D data
 parallelism (``dp``). Multi-dimensional meshes still matter operationally:
-on a multi-host slice the ``dp`` axis spans (hosts x chips) and the
-scheduler keeps each block's lanes on one chip so outputs never cross ICI —
+across several hosts the ``dp`` axis spans (hosts x cards) and the
+scheduler keeps each segment on one card so outputs never cross devices —
 reassembly offsets are known before decode from the container index
-(``/root/reference/src/decode/xz.rs:109-136``), so no dynamic
+(lzma-rs ``src/decode/xz.rs:109-136``), so no dynamic
 load-balancing collectives are needed for bit-exactness.
 """
 
@@ -18,17 +18,10 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Decode-runtime mesh/topology configuration.
-
-    - ``n_devices``: devices to use (None = all local),
-    - ``lanes_per_device``: target lane count per chip per launch; segments
-      beyond this are queued into multiple launches,
-    - ``max_chunk_bytes``: VMEM/HBM budget knob for per-launch input size.
-    """
+    """Decode-runtime mesh: ``n_devices`` local devices on one ``dp``
+    axis (None = all local devices)."""
 
     n_devices: Optional[int] = None
-    lanes_per_device: int = 1024
-    max_chunk_bytes: int = 1 << 28
 
     def make_mesh(self):
         import numpy as np
@@ -38,6 +31,3 @@ class MeshConfig:
         devs = jax.devices()
         n = self.n_devices or len(devs)
         return Mesh(np.array(devs[:n]), axis_names=("dp",))
-
-
-DEFAULT = MeshConfig()

@@ -1,16 +1,16 @@
-"""Multi-host block-parallel `.xz` decode (DP over DCN).
+"""Multi-host block-parallel `.xz` decode (DP across processes).
 
 The reference is single-process (SURVEY.md §2.3); multi-host scaling is a
 new capability derived from `.xz` block independence
-(``/root/reference/src/decode/xz.rs:196-290``): every block carries its own
+(the reference's ``src/decode/xz.rs:196-290``): every block carries its own
 filter chain, window, and check, and the stream index records per-block
 sizes, so
 
 1. every host parses the (tiny) container and computes the same block
    table and absolute output offsets — no communication,
 2. blocks are assigned greedily by packed size (static, deterministic),
-3. each host decodes its blocks locally (lane kernels or native engine),
-4. outputs are exchanged with one ``process_allgather`` over DCN and
+3. each host decodes its blocks locally (device or native engine),
+4. outputs are exchanged with one ``process_allgather`` and
    stitched by the precomputed offsets — placement is known *before*
    decode, so the gather is the only collective and ordering is
    deterministic.
@@ -18,7 +18,7 @@ sizes, so
 Initialize with ``jax.distributed.initialize()`` before calling
 :func:`xz_decode_multihost`. Single-process invocation degrades to local
 decode (the gather is the identity), which is how the unit tests exercise
-the path; multi-process CPU JAX stands in for a real slice.
+the path; multi-process CPU JAX stands in for several hosts.
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ def assign_blocks(spans: List[BlockSpan], n_hosts: int) -> List[int]:
 #: Target decoded bytes per gather wave: small enough that the first
 #: gather starts early (communication overlaps later waves' decode),
 #: large enough that per-collective latency amortizes. Tunable via
-#: LZMA_RS_TPU_WAVE_BYTES for slice-specific DCN characteristics.
+#: LZMA_RS_TPU_WAVE_BYTES for the network between the hosts.
 import os as _os
 
 WAVE_BYTES = int(_os.environ.get("LZMA_RS_TPU_WAVE_BYTES", 8 << 20))
@@ -174,7 +174,7 @@ def xz_decode_multihost(data: bytes, engine: str = "native") -> bytes:
     Every process must call this with identical ``data``; every process
     returns the full decompressed bytes. Output moves in *waves*: as soon
     as a host finishes its first wave of blocks, that wave's all-gather
-    runs on a background thread while the next wave decodes — DCN
+    runs on a background thread while the next wave decodes — network
     communication overlaps decode instead of one big end-of-job gather.
     """
     import jax
@@ -214,33 +214,28 @@ def xz_decode_multihost(data: bytes, engine: str = "native") -> bytes:
                 raise plan.pending_error
             eng = engine
             if eng == "auto":
-                # same throughput-model routing as the single-host
-                # paths; deterministic per plan, so identical on every
-                # host (the collective schedule never depends on it)
-                eng = rt._resolve_auto_engine([plan])
+                # same routing as the single-host paths; deterministic
+                # per plan, so identical on every host (the collective
+                # schedule never depends on it)
+                eng = rt._resolve_auto_engine(data, [plan])
             if eng == "native":
                 out = rt.execute_plan_native(data, [plan], threads=threads)
-            elif eng in ("tpu", "tpu-vmem"):
-                # production device path (the XLA lane kernel is only
-                # reachable as explicit "tpu-lane", runtime round-4).
-                # Any device failure — ineligibility OR a kernel error
-                # on corrupt data — falls back to the native engine so
-                # errors keep reference parity like the single-host
-                # paths.
+            elif eng in ("device", "xla"):
+                # Any device failure (a lane error on corrupt data, or a
+                # plan the device cannot take) falls back to the native
+                # engine, so errors keep reference parity like the
+                # single-host paths.
                 try:
-                    out = rt.execute_plan_vmem(data, [plan])
-                except Exception:
+                    out = rt._decode_on_device(data, [plan], eng)
+                except rt._KernelError:
+                    out = None
+                if out is None:
                     out = rt.execute_plan_native(
                         data, [plan], threads=threads
                     )
-            elif eng == "tpu-lane":
-                # the ~0.3 MB/s XLA lane kernel: explicit opt-in only,
-                # same rule as the single-host router (runtime round-4)
-                out = rt.execute_plan(data, [plan])
             else:
                 raise ValueError(
-                    f"unknown engine {eng!r} (expected auto, native, "
-                    "tpu, tpu-vmem, or tpu-lane)"
+                    f"unknown engine {eng!r} (expected one of {rt.ENGINES})"
                 )
             local[off : off + s.out_len] = np.frombuffer(out, dtype=np.uint8)
             off += s.out_len

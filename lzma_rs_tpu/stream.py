@@ -1,6 +1,6 @@
 """Push-style streaming LZMA decoder.
 
-Mirrors the reference ``decompress::Stream`` (``/root/reference/src/decode/
+Mirrors the reference ``decompress::Stream`` (lzma-rs ``src/decode/
 stream.rs:66-340``):
 
 - ``write(data)`` accepts arbitrary chunks; header bytes (<= 18: 13-byte
@@ -227,7 +227,7 @@ class Stream:
         own end marker is still unread, further input is not consumed and
         ``write`` returns less than ``len(data)`` — eventually 0, the
         Python analog of the reference's ``WriteZero`` error
-        (``/root/reference/tests/lzma.rs:71-88``). The stream is NOT
+        (lzma-rs ``tests/lzma.rs:71-88``). The stream is NOT
         poisoned by this; ``finish()`` still succeeds.
         """
         data = bytes(data)

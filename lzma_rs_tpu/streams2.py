@@ -1,9 +1,9 @@
 """Chunk-granular streaming decoders for LZMA2 and `.xz`.
 
 A capability beyond the reference, which only streams raw LZMA
-(``/root/reference/src/decode/stream.rs``). The reference's raw-LZMA
+(lzma-rs ``src/decode/stream.rs``). The reference's raw-LZMA
 streaming needs a 20-byte dry-run buffer because a symbol decode is not
-restartable mid-way (``/root/reference/src/decode/lzma.rs:403-419``);
+restartable mid-way (lzma-rs ``src/decode/lzma.rs:403-419``);
 LZMA2 and `.xz` layer framing on top whose headers carry exact sizes, so
 the natural streaming granule is a *chunk* (<= 64 KiB packed + 6-byte
 header) / container section — buffer until a framing unit is complete,
@@ -285,7 +285,7 @@ class XzStream:
         if check == xz_fmt.CHECK_SHA256:
             # One policy across one-shot and streaming: SHA-256 is
             # *verified* (documented superset of the reference, which
-            # rejects it: /root/reference/src/decode/xz.rs:326-330).
+            # rejects it: lzma-rs src/decode/xz.rs:326-330).
             import hashlib
 
             return hashlib.sha256()

@@ -1,14 +1,14 @@
 """CRC32 (ISO-HDLC) and CRC64 (XZ) checksums.
 
 The reference takes both from the ``crc`` crate
-(``/root/reference/src/xz/crc.rs:3-4``): CRC32 = CRC_32_ISO_HDLC (reflected,
+(lzma-rs ``src/xz/crc.rs:3-4``): CRC32 = CRC_32_ISO_HDLC (reflected,
 poly 0xEDB88320, init/xorout all-ones — identical to zlib.crc32) and CRC64 =
 CRC_64_XZ (reflected, poly 0xC96C5795D7870F42, init/xorout all-ones).
 
 Host path: CRC32 via zlib (C speed); CRC64 via a NumPy slice-by-8 table
 kernel, with an optional C++ native fast path (lzma_rs_tpu.native) that is
 used automatically when the shared library has been built. An on-device
-(TPU) CRC kernel lives in ``lzma_rs_tpu.ops.crc_jax`` and is validated
+CRC kernel lives in ``lzma_rs_tpu.ops.crc_device`` and is validated
 against these host implementations.
 """
 

@@ -1,7 +1,7 @@
 """Byte-cursor helpers for host-side container parsing.
 
-TPU-native equivalent of the reference's IO adapter layer
-(``/root/reference/src/decode/util.rs:3-117``): instead of wrapping
+Host-side equivalent of the reference's IO adapter layer
+(lzma-rs ``src/decode/util.rs:3-117``): instead of wrapping
 ``io::BufRead`` streams with counting/CRC taps, the host parser walks a
 ``memoryview`` with an explicit cursor; counted ranges and CRC taps become
 explicit slices hashed after the fact. EOF semantics mirror Rust's

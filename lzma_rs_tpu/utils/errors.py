@@ -1,14 +1,14 @@
 """Error taxonomy for lzma_rs_tpu.
 
 Mirrors the four-variant error model of the reference library
-(``/root/reference/src/error.rs:8-17``): ``IoError``, ``HeaderTooShort``,
+(lzma-rs ``src/error.rs:8-17``): ``IoError``, ``HeaderTooShort``,
 ``LzmaError`` and ``XzError``, with the same ``Display`` strings
 ("io error: ...", "header too short: ...", "lzma error: ...",
 "xz error: ...", ``src/error.rs:29-37``).
 
 ``HeaderTooShort`` is kept distinct from ``IoError`` because the streaming
 decoder uses it to distinguish *retryable* truncation while buffering header
-bytes (``/root/reference/src/decode/stream.rs:186``).
+bytes (lzma-rs ``src/decode/stream.rs:186``).
 """
 
 from __future__ import annotations
@@ -56,6 +56,6 @@ class XzError(LzmaRsError):
 
 # Message used by Rust's std::io for read_exact hitting EOF; the reference's
 # error strings embed it (e.g. tests assert "failed to fill whole buffer" for
-# truncated streams, /root/reference/src/decode/stream.rs:428). We reproduce
+# truncated streams, lzma-rs src/decode/stream.rs:428). We reproduce
 # the same message so error-string behavior is comparable.
 UNEXPECTED_EOF = "failed to fill whole buffer"

@@ -1,7 +1,7 @@
 """Zero-cost-when-off logging.
 
 The reference compiles its logging macros to no-ops unless the
-``enable_logging`` feature is set (``/root/reference/src/macros.rs:1-41``);
+``enable_logging`` feature is set (lzma-rs ``src/macros.rs:1-41``);
 gating logging bought ~25% decode speed (CHANGELOG.md:46-47). We reproduce
 the same discipline: logging is enabled only when the environment variable
 ``LZMA_RS_TPU_LOG`` is set, and the hot paths consult a module-level boolean

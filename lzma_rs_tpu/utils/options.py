@@ -2,9 +2,9 @@
 
 Mirrors the reference option structs:
 
-- decompress options: ``/root/reference/src/decode/options.rs:1-43``
+- decompress options: lzma-rs ``src/decode/options.rs:1-43``
   (``unpacked_size`` mode, ``memlimit``, ``allow_incomplete``),
-- compress options: ``/root/reference/src/encode/options.rs:1-30``.
+- compress options: lzma-rs ``src/encode/options.rs:1-30``.
 
 The three decode-side ``UnpackedSize`` modes (including the non-standard
 OpenCTM-style headerless payloads) are preserved exactly.

@@ -48,15 +48,18 @@ class DecodeStats:
     device_crc_seconds: float = 0.0
     device_crc_bytes: int = 0
     devices: int = 0
+    #: Lanes each device decoded in the last device-engine launch.
+    lanes_per_device: List[int] = dataclasses.field(default_factory=list)
     multihost_decode_seconds: float = 0.0
     #: Residual wait on the overlapped wave gathers after local decode
     #: finished (0 = communication fully hidden behind decode).
     multihost_gather_wait_seconds: float = 0.0
     multihost_waves: int = 0
     blocks: List[BlockStat] = dataclasses.field(default_factory=list)
-    #: Why a faster engine was skipped (e.g. "vmem-ineligible: segment
-    #: 131072 > window 16384"). Per SURVEY's "no silent caps": TPU perf
-    #: reports must not silently measure a fallback engine.
+    #: Why a faster engine was skipped or the host replayed a stream
+    #: (e.g. "auto->native: small workload (3 lanes, 2048 B out)"). Per
+    #: SURVEY's "no silent caps": device measurements must not silently
+    #: measure a fallback engine.
     fallbacks: List[str] = dataclasses.field(default_factory=list)
 
     def to_dict(self) -> dict:

@@ -1,9 +1,12 @@
 """CLI (`python -m lzma_rs_tpu`) end-to-end tests."""
 
+import os
 import subprocess
 import sys
 
 from conftest import read_ref
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def run_cli(*args, input=None):
@@ -11,7 +14,7 @@ def run_cli(*args, input=None):
         [sys.executable, "-m", "lzma_rs_tpu", *args],
         input=input,
         capture_output=True,
-        cwd="/root/repo",
+        cwd=REPO,
         check=True,
     )
 

@@ -57,13 +57,13 @@ class TestLzma2RealEncoder:
         monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "spec")
         assert lzma_rs_tpu.lzma2_decompress(c) == data
 
-    def test_tpu_engine_decodes(self, monkeypatch):
+    def test_device_engine_decodes(self, monkeypatch):
         import jax
 
         jax.config.update("jax_platforms", "cpu")
         data = read_ref("small.txt") * 30
         c = lzma_rs_tpu.lzma2_compress(data)
-        monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "tpu")
+        monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "device")
         assert lzma_rs_tpu.lzma2_decompress(c) == data
 
     def test_store_mode_parity(self):

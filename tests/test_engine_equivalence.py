@@ -1,5 +1,5 @@
 """Engine-equivalence property tests: for randomized inputs (valid and
-corrupted), the spec, native, and TPU engines must produce identical
+corrupted), the spec, native, device and XLA lane engines must produce identical
 outputs — or identical error classes — for the same stream. This is the
 framework's strongest internal consistency net (the reference's analog is
 its differential fuzzing vs liblzma, fuzz/README.md)."""
@@ -44,10 +44,10 @@ def _decode_all_engines(c: bytes):
     for name, fn in [
         ("spec", lambda d: Lzma2Decoder().decompress(ByteCursor(d))),
         ("native", lambda d: runtime.lzma2_decode(d, engine="native")),
-        # "tpu-lane" names the XLA lane kernel explicitly: on CPU hosts
-        # engine="tpu" now falls back to native (runtime round-4), and
-        # this test exists to cross-validate the device kernel
-        ("tpu", lambda d: runtime.lzma2_decode(d, engine="tpu-lane")),
+        # the device engine's decode core (CPU handler here) and the
+        # plain XLA lane decoder it is compared with on the card
+        ("device", lambda d: runtime.lzma2_decode(d, engine="device")),
+        ("xla", lambda d: runtime.lzma2_decode(d, engine="xla")),
     ]:
         try:
             results[name] = (fn(c), None)
@@ -68,7 +68,7 @@ def test_valid_streams_agree(seed):
             filters=[{"id": liblzma.FILTER_LZMA2, "preset": preset}],
         )
         res = _decode_all_engines(c)
-        assert res["spec"] == res["native"] == res["tpu"]
+        assert res["spec"] == res["native"] == res["device"] == res["xla"]
         assert res["spec"][0] == payload
 
 
@@ -104,5 +104,5 @@ def test_own_encoder_streams_agree(seed):
         payload = _gen_payload(rng)
         c = lzma_rs_tpu.lzma2_compress(payload, level=level)
         res = _decode_all_engines(c)
-        assert res["spec"] == res["native"] == res["tpu"]
+        assert res["spec"] == res["native"] == res["device"] == res["xla"]
         assert res["spec"][0] == payload

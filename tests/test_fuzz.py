@@ -1,5 +1,5 @@
 """Fuzz-style property tests (deterministic seeds), mirroring the reference
-fuzz target taxonomy (``/root/reference/fuzz/fuzz_targets``, README.md:3-8):
+fuzz target taxonomy (lzma-rs ``fuzz/fuzz_targets``, README.md:3-8):
 
 - ``decompress_{lzma,lzma2,xz}``: arbitrary bytes never crash with anything
   but a typed library error,

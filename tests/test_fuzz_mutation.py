@@ -1,5 +1,5 @@
 """Mutation-based differential fuzzing (reference fuzz tier,
-/root/reference/fuzz/fuzz_targets/compare_xz.rs and fuzz/README.md:3-8).
+lzma-rs fuzz/fuzz_targets/compare_xz.rs and fuzz/README.md:3-8).
 
 Coverage-guided libFuzzer is out of scope in this environment; this tier
 replaces it with *mutation* of valid archives — bit/byte flips,
@@ -140,7 +140,7 @@ def _xz_agree(case: bytes) -> str:
         # terminates a known-size LZMA chunk the moment the output is
         # complete and never validates the trailing compressed bytes
         # (they sit prefetched in the range coder's `code` register,
-        # /root/reference/src/decode/lzma.rs:442-455); liblzma validates
+        # lzma-rs src/decode/lzma.rs:442-455); liblzma validates
         # them. Accepting such inputs is reference parity — allowed iff
         # the reference-parity spec decoder also accepts AND produces
         # the same bytes.
@@ -326,7 +326,7 @@ class TestMutationNightly:
 # --- coverage-guided nightly tier (round 4) ---------------------------
 #
 # The reference fuzzes with instrumentation-guided libFuzzer
-# (/root/reference/fuzz/README.md:3-8); the tiers above explore blindly.
+# (lzma-rs fuzz/README.md:3-8); the tiers above explore blindly.
 # This tier closes most of the gap: nightly mutants run the pure-Python
 # spec decoder under sys.monitoring line coverage restricted to the
 # decode modules, and any mutant that reaches a new arc is kept as a

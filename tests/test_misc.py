@@ -48,7 +48,7 @@ class TestStats:
             assert lzma_rs_tpu.xz_decompress(c) == data
         d = s.to_dict()
         assert d["unpacked_bytes"] == len(data)
-        assert d["engine"] in ("native", "tpu", "")
+        assert d["engine"] in ("native", "device", "")
         assert d["prefill_bytes"] == len(data)  # store mode: all uncompressed
 
     def test_collect_compressed(self):

@@ -52,12 +52,12 @@ def test_lzma2_props_spec_engine(monkeypatch):
     assert lzma_rs_tpu.lzma2_decompress(c) == data
 
 
-def test_lzma2_props_tpu_engine(monkeypatch):
+def test_lzma2_props_device_engine(monkeypatch):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     data = read_ref("small.txt") * 20
     filters = [{"id": liblzma.FILTER_LZMA2, "preset": 6, "lc": 1, "lp": 1}]
     c = liblzma.compress(data, format=liblzma.FORMAT_RAW, filters=filters)
-    monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "tpu")
+    monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "device")
     assert lzma_rs_tpu.lzma2_decompress(c) == data

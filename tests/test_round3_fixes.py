@@ -1,11 +1,10 @@
-"""Round-3 fixes (VERDICT.md round-2 items 3 and 5; ADVICE items 1-2):
+"""Round-3 fixes (VERDICT.md round-2 items 3 and 5; ADVICE items 1-2),
+brought up to date with the device engine:
 
-- the ``auto`` engine is eligibility-aware: tpu-vmem when the default
-  backend is a TPU and the plan fits the VMEM kernel, native otherwise;
-- raw-LZMA device decode routes through the VMEM kernel (not the slow
-  XLA lane kernel), with host fallback for ineligible payloads;
-- KernelConfig2 rejects lane counts Mosaic cannot tile;
-- the gen-2 window bucket is sized from output (window) need only.
+- the ``auto`` engine routes to the device engine on a CUDA GPU for
+  enough lanes and output, to the native engine otherwise;
+- raw-LZMA device decode runs on the device engine at any size, with the
+  declared dictionary size still capping match distances.
 """
 
 import lzma as liblzma
@@ -14,13 +13,15 @@ import pytest
 
 import lzma_rs_tpu
 from lzma_rs_tpu import CompressOptions, WriteUnpackedSize
+from lzma_rs_tpu import platform
 from lzma_rs_tpu.parallel import runtime
 from lzma_rs_tpu.utils import stats as stats_mod
 
 from conftest import read_ref
 
 
-def _tpu_archive(n=6000):
+def _profile_archive(n=6000):
+    """A many-small-lanes archive (the ``tpu_profile`` shape)."""
     data = read_ref("foo.txt")[:n]
     return data, lzma_rs_tpu.xz_compress(
         data, block_size=2048, tpu_profile=True
@@ -32,93 +33,107 @@ class TestAutoEngine:
     def _tiny_thresholds(self, monkeypatch):
         # the auto router's minimum-work gate (64 lanes / 1 MiB out)
         # would route these deliberately tiny fixtures to the host
-        monkeypatch.setenv("LZMA_RS_TPU_AUTO_MIN_LANES", "1")
-        monkeypatch.setenv("LZMA_RS_TPU_AUTO_MIN_OUT", "1")
-        # the round-4 throughput model would (correctly) route these
-        # deliberately tiny fixtures to the host; calibrate it in the
-        # device's favor so eligibility behavior stays the thing tested
-        # (the model itself is covered by tests/test_round4_fixes.py)
-        monkeypatch.setenv("LZMA_RS_TPU_CAL_LINK_MBS", "1e9")
-        monkeypatch.setenv("LZMA_RS_TPU_CAL_NATIVE_MBS", "1e-6")
+        monkeypatch.setattr(runtime, "AUTO_MIN_LANES", 1)
+        monkeypatch.setattr(runtime, "AUTO_MIN_OUT", 1)
 
-    def test_auto_picks_vmem_when_on_tpu_and_eligible(self, monkeypatch):
-        data, arch = _tpu_archive()
-        monkeypatch.setattr(runtime, "_on_tpu", lambda: True)
+    def test_auto_picks_device_on_gpu(self, monkeypatch):
+        data, arch = _profile_archive()
+        monkeypatch.setattr(platform, "has_cuda", lambda: True)
         with stats_mod.collect() as st:
             out = runtime.xz_decode(arch, engine="auto")
         assert out == data
-        assert st.engine == "tpu-vmem"
+        assert st.engine == "device"
         assert not any("auto->native" in f for f in st.fallbacks)
 
-    def test_auto_picks_native_off_tpu(self, monkeypatch):
-        data, arch = _tpu_archive()
-        monkeypatch.setattr(runtime, "_on_tpu", lambda: False)
+    def test_auto_picks_native_without_gpu(self, monkeypatch):
+        data, arch = _profile_archive()
+        monkeypatch.setattr(platform, "has_cuda", lambda: False)
         with stats_mod.collect() as st:
             out = runtime.xz_decode(arch, engine="auto")
         assert out == data
         assert st.engine == "native"
 
-    def test_auto_falls_back_for_ineligible_plan(self, monkeypatch):
-        # lc=2, lp=2 exceeds the largest literal-table bucket (lc+lp <= 3)
+    def test_auto_falls_back_for_unsupported_plan(self, monkeypatch):
+        # beyond the int32 offsets of one launch: the router keeps it on
+        # the host and says why
         data = read_ref("foo.txt")[:3000]
         stream = liblzma.compress(
             data, format=liblzma.FORMAT_RAW,
             filters=[{"id": liblzma.FILTER_LZMA2, "preset": 6,
                       "lc": 2, "lp": 2}],
         )
-        monkeypatch.setattr(runtime, "_on_tpu", lambda: True)
+        monkeypatch.setattr(platform, "has_cuda", lambda: True)
+        monkeypatch.setattr(runtime, "_DEVICE_MAX_BYTES", 1000)
         with stats_mod.collect() as st:
             out = runtime.lzma2_decode(stream, engine="auto")
         assert out == data
         assert st.engine == "native"
         assert any("auto->native" in f for f in st.fallbacks), st.fallbacks
 
-    def test_public_api_auto_routes_tpu(self, monkeypatch):
-        data, arch = _tpu_archive()
-        monkeypatch.setattr(runtime, "_on_tpu", lambda: True)
-        monkeypatch.setattr(runtime, "_estimate_engine_seconds",
-                            lambda plans, cfg, n: (0.0, 1.0))
+    def test_auto_takes_lc_lp_4_to_device(self, monkeypatch):
+        data = read_ref("foo.txt")[:3000]
+        stream = liblzma.compress(
+            data, format=liblzma.FORMAT_RAW,
+            filters=[{"id": liblzma.FILTER_LZMA2, "preset": 6,
+                      "lc": 2, "lp": 2}],
+        )
+        monkeypatch.setattr(platform, "has_cuda", lambda: True)
+        with stats_mod.collect() as st:
+            out = runtime.lzma2_decode(stream, engine="auto")
+        assert out == data
+        assert st.engine == "device"
+        assert st.fallbacks == []
+
+    def test_public_api_auto_routes_device(self, monkeypatch):
+        data, arch = _profile_archive()
+        monkeypatch.setattr(platform, "has_cuda", lambda: True)
         monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "auto")
         with stats_mod.collect() as st:
             out = lzma_rs_tpu.xz_decompress(arch)
         assert out == data
-        assert st.engine == "tpu-vmem"
+        assert st.engine == "device"
 
 
-class TestRawLzmaVmemRouting:
-    def test_raw_eligible_hits_vmem(self, monkeypatch):
+def _sized_raw(data: bytes) -> bytes:
+    return lzma_rs_tpu.lzma_compress_with_options(
+        data,
+        CompressOptions(
+            unpacked_size=WriteUnpackedSize.write_to_header(len(data))
+        ),
+    )
+
+
+class TestRawLzmaDeviceRouting:
+    def test_raw_known_size_hits_device(self, monkeypatch):
         data = read_ref("foo.txt")[:3000]
-        c = lzma_rs_tpu.lzma_compress_with_options(
-            data,
-            CompressOptions(
-                unpacked_size=WriteUnpackedSize.write_to_header(len(data))
-            ),
-        )
-        monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "tpu")
+        monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "device")
         with stats_mod.collect() as st:
-            out = lzma_rs_tpu.lzma_decompress(c)
+            out = lzma_rs_tpu.lzma_decompress(_sized_raw(data))
         assert out == data
-        assert st.engine == "tpu-vmem"
+        assert st.engine == "device"
 
-    def test_raw_oversize_falls_back_to_host(self, monkeypatch):
-        # > 64 KiB output exceeds every VMEM window bucket
+    def test_raw_large_stays_on_device(self, monkeypatch):
+        # the window is the flat output: no size cap sends it to the host
         data = read_ref("foo.txt")[:100_000]
-        c = lzma_rs_tpu.lzma_compress_with_options(
-            data,
-            CompressOptions(
-                unpacked_size=WriteUnpackedSize.write_to_header(len(data))
-            ),
-        )
-        monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "tpu")
+        monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "device")
+        with stats_mod.collect() as st:
+            out = lzma_rs_tpu.lzma_decompress(_sized_raw(data))
+        assert out == data
+        assert st.engine == "device"
+        assert st.fallbacks == []
+
+    def test_raw_unknown_size_goes_to_host(self, monkeypatch):
+        data = read_ref("foo.txt")[:3000]
+        c = lzma_rs_tpu.lzma_compress(data)
+        monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "device")
         with stats_mod.collect() as st:
             out = lzma_rs_tpu.lzma_decompress(c)
         assert out == data
-        assert any("vmem-ineligible" in f for f in st.fallbacks), st.fallbacks
+        assert st.engine == ""
 
     def test_raw_small_dict_keeps_distance_semantics(self, monkeypatch):
-        # dict_size < unpacked size: the VMEM kernel has no dictionary
-        # distance cap, so the decode must route to a host engine that
-        # enforces the reference's "beyond dictionary size" error.
+        # dict_size < unpacked size: the device decode caps distances at
+        # the declared dictionary, like the reference's window
         data = read_ref("foo.txt")[:30_000]
         c = bytearray(
             liblzma.compress(
@@ -131,86 +146,40 @@ class TestRawLzmaVmemRouting:
         # real size so the device path (which needs a known size) is taken
         c[5:13] = len(data).to_bytes(8, "little")
         c = bytes(c)
-        monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "tpu")
+        monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "device")
         with stats_mod.collect() as st:
             out = lzma_rs_tpu.lzma_decompress(c)
         assert out == data
-        assert any("distance-cap" in f for f in st.fallbacks), st.fallbacks
+        assert st.engine == "device"
+        assert st.fallbacks == []
 
+    def test_raw_distance_beyond_dict_error_parity(self, monkeypatch):
+        """A distance past the declared dictionary fails on the device,
+        and the host replay raises the reference's exact error."""
+        import random
+        import struct
 
-class TestConfigValidation:
-    def test_bad_lane_count_rejected(self):
-        from lzma_rs_tpu.ops.vmem2_decoder import KernelConfig2
+        rng = random.Random(7)
+        blk = bytes(rng.randrange(256) for _ in range(2000))
+        data = blk + bytes(8000) + blk
+        c = liblzma.compress(data, format=liblzma.FORMAT_ALONE, preset=9)
+        hdr = bytearray(c[:13])
+        struct.pack_into("<I", hdr, 1, 4096)
+        struct.pack_into("<Q", hdr, 5, len(data))
+        payload = bytes(hdr) + c[13:]
 
-        with pytest.raises(AssertionError, match="multiple of 128"):
-            KernelConfig2(L=192, W=4096, W_IN=4096, NLIT=1, NPS=4)
+        def run(backend):
+            monkeypatch.setenv("LZMA_RS_TPU_BACKEND", backend)
+            try:
+                return ("ok", lzma_rs_tpu.lzma_decompress(payload))
+            except Exception as ex:  # noqa: BLE001 - compare strings
+                return ("err", type(ex).__name__, str(ex))
 
-    def test_small_and_aligned_lane_counts_ok(self):
-        from lzma_rs_tpu.ops.vmem2_decoder import KernelConfig2
-
-        KernelConfig2(L=8, W=4096, W_IN=4096, NLIT=1, NPS=4)
-        KernelConfig2(L=1024, W=4096, W_IN=4096, NLIT=1, NPS=4)
-
-
-class TestWindowBucketDecoupling:
-    def test_incompressible_input_does_not_inflate_window(self):
-        # Packed input (3000 B) larger than the segment output (1500 B):
-        # W_IN must grow to cover the input but the window bucket must
-        # track output need only (O(W) per-step window passes).
-        lane = runtime.LanePlan(
-            in_start=[0], in_end=[3000], out_start=[0], out_end=[1500],
-            reset_state=[1], lc=[0], lp=[0], pb=[2],
-            seg_base=0, size_known=1, dict_size=0xFFFFFFFF,
-        )
-        plan = runtime.DecodePlan(lanes=[lane], prefill=[], total_out=1500)
-        cfg = runtime.choose_vmem_config([plan])
-        assert cfg.W == 2048
-        assert cfg.W_IN == 4096
-
-
-class TestDevBench:
-    def test_stage_first_batch_cpu(self):
-        """devbench staging mirrors the runtime's packed layouts; the
-        staged batch decodes bit-exact through the kernel (interpret)."""
-        import dataclasses
-
-        import jax
-        import numpy as np
-
-        jax.config.update("jax_platforms", "cpu")
-        from lzma_rs_tpu.ops.vmem2_decoder import (
-            KernelConfig2, decode_segments_vmem2,
-        )
-        from lzma_rs_tpu.parallel import devbench
-
-        data = read_ref("foo.txt")[:6000]
-        arch = lzma_rs_tpu.xz_compress(
-            data, block_size=2048, tpu_profile=True, check_method=1
-        )
-        cfg = KernelConfig2(L=8, W=2048, W_IN=2048, NLIT=1, K=4,
-                            NPS=4, TB=2, TILE=384)
-        cfg2, dev_args, out_bytes = devbench.stage_first_batch(arch, cfg)
-        assert out_bytes == len(data)
-        max_iters = 8 * cfg.W_IN + 2 * cfg.W + cfg.MAINT * 16 + 1024
-        win, err, outp, iters = decode_segments_vmem2(
-            *dev_args, config=cfg, max_iters=max_iters, interpret=True
-        )
-        assert not np.asarray(err)[0].any()
-        # lanes were sorted by packed size; re-derive to compare
-        from lzma_rs_tpu.parallel import runtime
-
-        plans = runtime.plan_xz(arch)[0]
-        lanes = [l for p in plans for l in p.lanes]
-        lanes.sort(
-            key=lambda l: sum(e - s for s, e in zip(l.in_start, l.in_end)),
-            reverse=True,
-        )
-        win_np = np.ascontiguousarray(np.asarray(win).T).view(np.uint8)
-        for i, lane in enumerate(lanes):
-            n = lane.out_end[-1] - lane.seg_base
-            assert win_np[i, :n].tobytes() == data[
-                lane.seg_base : lane.seg_base + n
-            ]
+        with stats_mod.collect() as st:
+            rd = run("device")
+        assert rd == run("native") == run("spec")
+        assert "beyond dictionary size 4096" in rd[2]
+        assert any("host replay" in f for f in st.fallbacks), st.fallbacks
 
 
 class TestRawFlatFastPath:
@@ -337,34 +306,6 @@ class TestRawFlatFastPath:
         assert rn[0] == "err" and "exceeded memory limit of 895" in rn[2]
 
 
-class TestEligibilityConfigView:
-    """choose_vmem_config(for_eligibility=True) must agree with the real
-    KernelConfig2 on every budget field check_vmem_eligibility reads —
-    otherwise the auto router and the staging path could disagree."""
-
-    def test_budget_fields_match_real_config(self, monkeypatch):
-        data = read_ref("foo.txt")[:20000]
-        arch = lzma_rs_tpu.xz_compress(
-            data, block_size=4096, tpu_profile=True, check_method=1
-        )
-        plans = runtime.plan_xz(arch)[0]
-        light = runtime.choose_vmem_config(plans, for_eligibility=True)
-        real = runtime.choose_vmem_config(plans)
-        for field in ("W", "W_IN", "NLIT", "NPS", "RING", "K", "TB",
-                      "MAINT", "TILE", "UNROLL"):
-            assert getattr(light, field) == getattr(real, field), field
-
-    def test_maint_env_knob_scales_tile(self, monkeypatch):
-        monkeypatch.setenv("LZMA_RS_TPU_VMEM_MAINT", "128")
-        data = read_ref("foo.txt")[:20000]
-        arch = lzma_rs_tpu.xz_compress(
-            data, block_size=4096, tpu_profile=True, check_method=1
-        )
-        plans = runtime.plan_xz(arch)[0]
-        cfg = runtime.choose_vmem_config(plans)
-        assert cfg.MAINT == 128
-        assert cfg.TILE - 128 >= cfg.TB * cfg.MAINT + 16
-
 def test_wrapscale_eos_stream_flat_window(monkeypatch):
     """An EOS stream whose output far exceeds the dictionary (the
     flat-accum window path must keep distances dict-bounded while the
@@ -468,11 +409,9 @@ def test_xz_container_error_after_decodable_block(monkeypatch):
 
 def test_auto_small_workload_stays_on_host(monkeypatch):
     """A tiny archive never takes a device trip (or a cold compile),
-    even on a TPU host with an eligible plan."""
-    data, arch = _tpu_archive()  # few lanes, ~6 KB out
-    monkeypatch.setattr(runtime, "_on_tpu", lambda: True)
-    monkeypatch.delenv("LZMA_RS_TPU_AUTO_MIN_LANES", raising=False)
-    monkeypatch.delenv("LZMA_RS_TPU_AUTO_MIN_OUT", raising=False)
+    even on a GPU host."""
+    data, arch = _profile_archive()  # few lanes, ~6 KB out
+    monkeypatch.setattr(platform, "has_cuda", lambda: True)
     with stats_mod.collect() as st:
         out = runtime.xz_decode(arch, engine="auto")
     assert out == data

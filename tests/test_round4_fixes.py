@@ -1,11 +1,11 @@
-"""Round-4 fixes (VERDICT round-3 items 3-4; ADVICE medium):
+"""Round-4 fixes (VERDICT round-3 items 3-4; ADVICE medium), brought up
+to date with the device engine:
 
-- the ``auto`` engine has a throughput model: it never routes to a
-  modeled-slower engine, so eligible-but-slow device decodes (stock
-  64 KiB-block archives, slow links) stay on the host;
-- explicit ``engine="tpu"`` falls back to the host engine when the VMEM
-  kernel is ineligible or no TPU exists; the ~0.3 MB/s XLA lane kernel
-  is reachable only by naming ``engine="tpu-lane"``;
+- the ``auto`` engine routes by a rule on what it can see in the input
+  (lane count and output size) and the platform, never by a model;
+- explicit ``engine="device"`` decodes every segment size on the device
+  engine (no window budget sends it to the host), and the plain XLA lane
+  decoder is reachable only by naming ``engine="xla"``;
 - multihost scan_blocks surfaces deferred chunk-header errors via the
   sequential replay path instead of silently truncating output.
 """
@@ -15,6 +15,7 @@ import lzma as liblzma
 import pytest
 
 import lzma_rs_tpu
+from lzma_rs_tpu import platform
 from lzma_rs_tpu.formats import xz as xz_fmt
 from lzma_rs_tpu.parallel import multihost, runtime
 from lzma_rs_tpu.utils import stats as stats_mod
@@ -23,7 +24,7 @@ from lzma_rs_tpu.utils.errors import LzmaError
 from conftest import read_ref
 
 
-def _big_tpu_archive(mb=2):
+def _big_profile_archive(mb=2):
     seed = read_ref("foo.txt")
     data = (seed * (mb * 1_000_000 // len(seed) + 1))[: mb * 1_000_000]
     return data, lzma_rs_tpu.xz_compress(
@@ -31,115 +32,119 @@ def _big_tpu_archive(mb=2):
     )
 
 
-class TestAutoThroughputModel:
-    def test_auto_native_when_device_modeled_slower(self, monkeypatch):
-        # default calibration: tunnel-class link (25 MB/s) makes the
-        # device e2e slower than the host engine even for the flagship
-        # tpu_profile shape -> auto must stay native
-        data, arch = _big_tpu_archive()
-        monkeypatch.setattr(runtime, "_on_tpu", lambda: True)
+def _no_lane_kernel(monkeypatch):
+    def boom(*a, **kw):
+        raise AssertionError("XLA lane kernel reached")
+
+    monkeypatch.setattr(runtime, "execute_plan", boom)
+
+
+def _plans(n_lanes: int, seg_len: int):
+    lanes = [
+        runtime.LanePlan(
+            in_start=[0], in_end=[8], out_start=[i * seg_len],
+            out_end=[(i + 1) * seg_len], reset_state=[1], lc=[3], lp=[0],
+            pb=[2], seg_base=i * seg_len, size_known=1,
+            dict_size=0xFFFFFFFF,
+        )
+        for i in range(n_lanes)
+    ]
+    return [runtime.DecodePlan(lanes=lanes, prefill=[],
+                               total_out=n_lanes * seg_len)]
+
+
+class TestAutoRule:
+    def test_auto_device_for_many_lanes_on_gpu(self, monkeypatch):
+        data, arch = _big_profile_archive()
+        monkeypatch.setattr(platform, "has_cuda", lambda: True)
+        _no_lane_kernel(monkeypatch)
+        with stats_mod.collect() as st:
+            out = runtime.xz_decode(arch, engine="auto")
+        assert out == data
+        assert st.engine == "device"
+        assert st.fallbacks == []
+
+    def test_auto_native_without_gpu(self, monkeypatch):
+        data, arch = _big_profile_archive()
+        monkeypatch.setattr(platform, "has_cuda", lambda: False)
         with stats_mod.collect() as st:
             out = runtime.xz_decode(arch, engine="auto")
         assert out == data
         assert st.engine == "native"
-        assert any("modeled device" in f for f in st.fallbacks), st.fallbacks
 
-    def test_auto_device_when_model_favors_it(self, monkeypatch):
-        # PCIe-class link + slow host -> the model favors the device
-        # (the executor is stubbed: no real device on CPU CI).
-        data, arch = _big_tpu_archive()
-        monkeypatch.setattr(runtime, "_on_tpu", lambda: True)
-        monkeypatch.setenv("LZMA_RS_TPU_CAL_LINK_MBS", "8000")
-        monkeypatch.setenv("LZMA_RS_TPU_CAL_NATIVE_MBS", "0.001")
-        called = {}
-
-        def fake_vmem(d, plans, config=None, interpret=None):
-            called["vmem"] = True
-            return runtime.execute_plan_native(d, plans)
-
-        monkeypatch.setattr(runtime, "execute_plan_vmem", fake_vmem)
-        out = runtime.xz_decode(arch, engine="auto")
-        assert out == data
-        assert called.get("vmem")
-
-    def test_stock_64k_archive_routes_native_even_on_tpu(self, monkeypatch):
-        # A stock --block-size=64KiB-shaped archive is VMEM-eligible
-        # (W=64 KiB bucket) but decodes ~1.4 MB/s/chip: the model must
-        # route it to the host even with a fast link (VERDICT round-3
-        # item 3). 122 lanes / 8 MB clears the minimum-work gate.
+    def test_stock_64k_archive_routes_device_on_gpu(self, monkeypatch):
+        # the stock --block-size=64KiB shape: 64 lanes / 4 MiB clears
+        # the minimum-work gate, and no window budget stops it
         seed = read_ref("foo.txt")
-        data = (seed * 48)[: 8 << 20]
+        data = (seed * 25)[: 4 << 20]
         arch = lzma_rs_tpu.xz_compress(data, block_size=65536, level=1)
-        monkeypatch.setattr(runtime, "_on_tpu", lambda: True)
-        monkeypatch.setenv("LZMA_RS_TPU_CAL_LINK_MBS", "8000")
-
-        def boom(*a, **kw):  # the device path must not be reached
-            raise AssertionError("device executor reached")
-
-        monkeypatch.setattr(runtime, "execute_plan_vmem", boom)
+        monkeypatch.setattr(platform, "has_cuda", lambda: True)
+        _no_lane_kernel(monkeypatch)
         with stats_mod.collect() as st:
             out = runtime.xz_decode(arch, engine="auto")
         assert out == data
-        assert st.engine == "native"
-        assert any("modeled device" in f for f in st.fallbacks), st.fallbacks
+        assert st.engine == "device"
+        assert st.lanes == 64
 
-    def test_model_scales_with_devices(self):
-        data, arch = _big_tpu_archive()
-        plans = runtime.plan_xz(arch)[0]
-        cfg = runtime.choose_vmem_config(plans, for_eligibility=True)
-        d1, n1 = runtime._estimate_engine_seconds(plans, cfg, 1)
-        d4, n4 = runtime._estimate_engine_seconds(plans, cfg, 4)
-        assert n1 == n4
-        assert d4 < d1  # kernel time shards across chips
+    @pytest.mark.parametrize(
+        "n_lanes,seg_len,want",
+        [
+            (64, 1 << 14, "device"),   # exactly at both thresholds
+            (63, 1 << 15, "native"),   # one lane short
+            (128, 8191, "native"),     # just under 1 MiB out
+            (1, 1 << 24, "native"),    # one long lane
+        ],
+    )
+    def test_rule_thresholds(self, monkeypatch, n_lanes, seg_len, want):
+        monkeypatch.setattr(platform, "has_cuda", lambda: True)
+        with stats_mod.collect() as st:
+            got = runtime._resolve_auto_engine(b"", _plans(n_lanes, seg_len))
+        assert got == want
+        assert (want == "native") == any(
+            "small workload" in f for f in st.fallbacks
+        )
 
 
 class TestLaneKernelQuarantine:
-    def test_explicit_tpu_off_tpu_goes_native(self, monkeypatch):
-        data, arch = _big_tpu_archive(1)
-
-        def boom(*a, **kw):
-            raise AssertionError("XLA lane kernel reached")
-
-        monkeypatch.setattr(runtime, "execute_plan", boom)
+    def test_explicit_device_without_gpu_runs_cpu_handler(self, monkeypatch):
+        data, arch = _big_profile_archive(1)
+        _no_lane_kernel(monkeypatch)
         with stats_mod.collect() as st:
-            out = runtime.xz_decode(arch, engine="tpu")
+            out = runtime.xz_decode(arch, engine="device")
         assert out == data
-        assert any("tpu->native" in f for f in st.fallbacks)
+        assert st.engine == "device"
+        assert st.fallbacks == []
 
-    def test_vmem_ineligible_tpu_goes_native_not_lane(self, monkeypatch):
-        # 1 MiB blocks exceed every VMEM window bucket -> VmemIneligible;
-        # the fallback must be the host engine, never the lane kernel
+    def test_large_blocks_stay_on_device(self, monkeypatch):
+        # 1 MiB blocks: one long lane each, decoded with the window in
+        # device memory; neither the host nor the lane kernel is reached
         seed = read_ref("foo.txt")
         data = (seed * 20)[: 3 << 20]
         arch = lzma_rs_tpu.xz_compress(data, block_size=1 << 20, level=1)
-        monkeypatch.setattr(runtime, "_on_tpu", lambda: True)
-
-        def boom(*a, **kw):
-            raise AssertionError("XLA lane kernel reached")
-
-        monkeypatch.setattr(runtime, "execute_plan", boom)
+        _no_lane_kernel(monkeypatch)
         with stats_mod.collect() as st:
-            out = runtime.xz_decode(arch, engine="tpu")
+            out = runtime.xz_decode(arch, engine="device")
         assert out == data
-        assert any("vmem-ineligible" in f for f in st.fallbacks)
+        assert st.engine == "device"
+        assert st.lanes == 3
+        assert st.fallbacks == []
 
-    def test_lzma2_explicit_tpu_ineligible_goes_native(self, monkeypatch):
+    def test_lzma2_explicit_device_large_segment(self, monkeypatch):
         data = read_ref("foo.txt")[:200_000]  # > 64 KiB single segment
         stream = liblzma.compress(
             data, format=liblzma.FORMAT_RAW,
             filters=[{"id": liblzma.FILTER_LZMA2, "preset": 6}],
         )
-        monkeypatch.setattr(runtime, "_on_tpu", lambda: True)
-
-        def boom(*a, **kw):
-            raise AssertionError("XLA lane kernel reached")
-
-        monkeypatch.setattr(runtime, "execute_plan", boom)
-        out = runtime.lzma2_decode(stream, engine="tpu")
+        _no_lane_kernel(monkeypatch)
+        with stats_mod.collect() as st:
+            out = runtime.lzma2_decode(stream, engine="device")
         assert out == data
+        assert st.engine == "device"
 
-    def test_tpu_lane_engine_still_reachable(self, monkeypatch):
-        data, arch = _big_tpu_archive(1)
+    def test_xla_engine_still_reachable(self, monkeypatch):
+        data = read_ref("foo.txt")[:40_000]
+        arch = lzma_rs_tpu.xz_compress(data, block_size=8192,
+                                       tpu_profile=True)
         called = {}
         real = runtime.execute_plan
 
@@ -148,9 +153,15 @@ class TestLaneKernelQuarantine:
             return real(d, plans)
 
         monkeypatch.setattr(runtime, "execute_plan", spy)
-        out = runtime.xz_decode(arch, engine="tpu-lane")
+        with stats_mod.collect() as st:
+            out = runtime.xz_decode(arch, engine="xla")
         assert out == data
         assert called.get("lane")
+        assert st.engine == "xla"
+
+    def test_unknown_engine_rejected(self):
+        with pytest.raises(ValueError, match="unknown engine"):
+            runtime.xz_decode(b"", engine="fast")
 
 
 class TestMultihostPendingError:

@@ -4,7 +4,7 @@ The reference only streams raw LZMA; these are capability extensions, so
 the oracle is one-shot equivalence: for every chunking of the input, the
 streamed output must equal the one-shot decode, and the same corrupt
 inputs must fail (poisoning the stream like decompress::Stream does,
-/root/reference/src/decode/stream.rs:461-472).
+lzma-rs src/decode/stream.rs:461-472).
 """
 
 import lzma as liblzma

@@ -40,7 +40,7 @@ def test_planner_detects_state_carry():
         runtime.plan_lzma2_stream(data, 0, 0)
 
 
-@pytest.mark.parametrize("engine", ["native", "tpu"])
+@pytest.mark.parametrize("engine", ["native", "device"])
 def test_parallel_falls_back_to_sequential(engine):
     import jax
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """API documentation check (the reference's rustdoc gate,
-/root/reference/.github/workflows/rustdoc.yml, adapted to Python).
+lzma-rs .github/workflows/rustdoc.yml, adapted to Python).
 
 Fails if any public symbol reachable from the package surface — the
 8 reference-parity entry points, the option/stream classes, and every

@@ -2,7 +2,7 @@
 """First-party line-coverage report for the lzma_rs_tpu package.
 
 The reference tracks coverage with a codecov workflow
-(/root/reference/.github/workflows/codecov.yml); this environment has
+(lzma-rs .github/workflows/codecov.yml); this environment has
 no coverage.py, so this tool collects line events with sys.monitoring
 (PEP 669, the same machinery the coverage-guided fuzz tier uses) while
 running the test suite, and reports per-module executed/executable line

@@ -2,21 +2,22 @@
 
 Launch: python tools/multihost_demo.py <proc_id> <num_procs>
 (each process decodes its block subset; all assert the full result).
+The processes force the CPU backend: several JAX processes must never
+open one GPU, since each reserves most of a card's memory.
 """
 import os, sys
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["JAX_PLATFORM_NAME"] = "cpu"
 proc, nproc = int(sys.argv[1]), int(sys.argv[2])
 import jax
-jax.config.update("jax_platforms", "cpu")
 jax.distributed.initialize(
     coordinator_address="127.0.0.1:9711", num_processes=nproc, process_id=proc
 )
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import lzma_rs_tpu
+from lzma_rs_tpu import corpus
 from lzma_rs_tpu.parallel import multihost
 
-data = open("/root/reference/tests/files/foo.txt", "rb").read()
+data = corpus.golden("foo.txt")
 c = lzma_rs_tpu.xz_compress(data, block_size=1 << 14, check_method=4)
 out = multihost.xz_decode_multihost(c)
 assert out == data, f"proc {proc}: mismatch"

@@ -2,12 +2,12 @@
 """Profile a decode: structured stats + optional jax.profiler trace.
 
 Usage:
-  python tools/profile_decode.py FILE.xz [--engine native|tpu|spec]
+  python tools/profile_decode.py FILE.xz [--engine native|device|spec|auto]
                                  [--trace DIR]
 
 Prints the per-call structured stats (utils/stats.py) and, with --trace,
-writes a TensorBoard-compatible device trace of the TPU engine's kernel
-launches.
+writes a TensorBoard-compatible trace (jax.profiler) of the device
+engine's launches.
 """
 
 import argparse
@@ -23,7 +23,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("file")
     ap.add_argument("--engine", default="native",
-                    choices=["native", "tpu", "spec"])
+                    choices=["native", "device", "spec", "auto"])
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
 
