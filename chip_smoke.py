@@ -6,16 +6,19 @@ the lane split over four).
     python chip_smoke.py --cards 4
 
 It builds seeded archives (``lzma_rs_tpu.corpus``): ``--mib`` MiB of
-text-and-binary data cut into 8 KiB, 64 KiB and 1 MiB liblzma blocks
-(preset 6) in `.xz` framing, a small ``tpu_profile`` archive from this
-package's encoder, a multi-segment raw LZMA2 stream and a sized raw LZMA
-stream. Each decodes through the public entry points on the device
-engine, with no fallback, bit-exact against stdlib ``lzma``; a slice is
-checked against the executable spec, a corrupt archive must raise the
-reference's error, and the device CRC32/CRC64 against zlib and the native
-CRC64. Warm times of the CUDA kernel, the plain XLA lane decoder, the
-native host engine and stdlib ``lzma`` are printed beside the card's name
-and power limit.
+text-and-binary data cut into 8 KiB, 64 KiB, 256 KiB and 1 MiB liblzma
+blocks (preset 6) in `.xz` framing, a small ``tpu_profile`` archive from
+this package's encoder, a multi-segment raw LZMA2 stream and a sized raw
+LZMA stream. Each decodes through the public entry points: first under
+the ``auto`` router, which must pick the engine its rule names (the
+device for lanes of at most 64 KiB, else the host), then with the device
+backend selected, on the CUDA kernel with no fallback, bit-exact against
+stdlib ``lzma``. A slice is checked against the executable spec, a
+corrupt archive must raise the reference's error, and the device
+CRC32/CRC64 against zlib and the native CRC64. Warm times of the CUDA
+kernel, the plain XLA lane decoder, the native host engine and stdlib
+``lzma`` are printed beside the card's name and power limit, with the
+device path split into planning, staging, transfers and the kernel.
 
 With ``--cards 4`` only the multi-card path runs: the same archives with
 lanes split over four cards, against the same decode on one card.
@@ -97,7 +100,7 @@ def build_archives(args):
     data = corpus.mixed(args.mib * MiB, args.seed)
     archives = {}
     for label, block, check in (("8KiB", 8 << 10, 1), ("64KiB", 64 << 10, 4),
-                                ("1MiB", 1 << 20, 4)):
+                                ("256KiB", 256 << 10, 4), ("1MiB", 1 << 20, 4)):
         t0 = time.perf_counter()
         archives[label] = corpus.xz_blocks(data, block, check=check)
         log(f"    {label} blocks: {len(data)} -> {len(archives[label])} B "
@@ -129,26 +132,58 @@ def run_one_card(args, smoke: Smoke):
     data, archives, corpus, api = (state["data"], state["archives"],
                                    state["corpus"], state["api"])
 
-    def decode_class(label, arch, want, fn):
+    def decode_class(label, arch, want, fn, expect="device"):
+        """Decode through a public entry point; ``expect`` is the engine
+        the call must end on, with no fallback unless the router sent it
+        to the host."""
         with stats.collect() as st:
             t0 = time.perf_counter()
             out = fn(arch)
             first = time.perf_counter() - t0
         if out != want:
             raise AssertionError(f"{label}: output differs from the original")
-        if st.engine != "device" or st.fallbacks:
+        if expect == "device":
+            ok = (st.engine == "device" and st.platform == "cuda"
+                  and not st.fallbacks)
+        else:
+            ok = (st.engine == expect and len(st.fallbacks) == 1
+                  and st.fallbacks[0].startswith("auto->native"))
+        if not ok:
             raise AssertionError(
-                f"{label}: engine {st.engine!r}, fallbacks {st.fallbacks}"
+                f"{label}: engine {st.engine!r} on {st.platform!r}, "
+                f"fallbacks {st.fallbacks}, expected {expect}"
             )
         log(f"    {label}: {len(arch)} B in, {len(out)} B out, "
-            f"{st.lanes} lanes, engine {st.engine}, fallbacks "
-            f"{st.fallbacks}, first call {first:.2f} s (incl. compile)")
+            f"{st.lanes} lanes, engine {st.engine} ({st.platform or 'host'})"
+            f", fallbacks {st.fallbacks}, first call {first:.2f} s "
+            "(incl. compile)")
+
+    def with_backend(fn):
+        def call(arch):
+            os.environ["LZMA_RS_TPU_BACKEND"] = "device"
+            try:
+                return fn(arch)
+            finally:
+                del os.environ["LZMA_RS_TPU_BACKEND"]
+        return call
 
     def main_path():
         for label, arch in archives.items():
             if lzma.decompress(arch) != data:
                 raise AssertionError(f"{label}: stdlib lzma disagrees")
-            decode_class(f".xz {label}", arch, data, api.xz_decompress)
+            # the router's rule, restated: enough lanes and output, and
+            # no lane too long for one card thread
+            lanes = [lane for p in runtime.plan_xz(arch)[0]
+                     for lane in p.lanes]
+            longest = max(lane.out_end[-1] - lane.seg_base for lane in lanes)
+            expect = ("device" if len(lanes) >= runtime.AUTO_MIN_LANES
+                      and len(data) >= runtime.AUTO_MIN_OUT
+                      and longest <= runtime.AUTO_MAX_LANE_OUT else "native")
+            decode_class(f".xz {label} (auto)", arch, data,
+                         api.xz_decompress, expect)
+            if expect != "device":
+                decode_class(f".xz {label} (device backend)", arch, data,
+                             with_backend(api.xz_decompress))
         small = data[: 8 * MiB]
         tp = api.xz_compress(small, tpu_profile=True, check_method=1)
         if lzma.decompress(tp) != small:
@@ -161,14 +196,10 @@ def run_one_card(args, smoke: Smoke):
         raw_in = data[: 4 * MiB]
         raw = bytearray(lzma.compress(raw_in, format=lzma.FORMAT_ALONE))
         raw[5:13] = len(raw_in).to_bytes(8, "little")  # declare the size
-        os.environ["LZMA_RS_TPU_BACKEND"] = "device"
-        try:
-            decode_class("raw lzma (known size)", bytes(raw), raw_in,
-                         api.lzma_decompress)
-        finally:
-            del os.environ["LZMA_RS_TPU_BACKEND"]
+        decode_class("raw lzma (known size)", bytes(raw), raw_in,
+                     with_backend(api.lzma_decompress))
 
-    smoke.phase("main path on the device engine (auto router)", main_path)
+    smoke.phase("main path: auto router, then the device backend", main_path)
 
     def spec_slice():
         from lzma_rs_tpu.models.codecs import xz_decode_stream
@@ -227,6 +258,40 @@ def run_one_card(args, smoke: Smoke):
                 smoke.rate(f"{label} {name}", len(want), sec)
 
     smoke.phase("warm wall times to a finished host result", timings)
+
+    def breakdown():
+        # the device path of runtime.xz_decode, one part at a time (warm,
+        # median of 3): container walk and chunk tables, staging, the
+        # input's copy to the card, the kernel on card-resident operands,
+        # and the kernel with the output's copy back to the host
+        import numpy as np
+
+        archs = dict(archives, tpu_profile=state.get("tpu_profile"))
+        for label, arch in archs.items():
+            if arch is None:
+                continue
+            t_plan, plans = timed(lambda: runtime.plan_xz(arch)[0])
+            t_stage, stage = timed(lambda: runtime.stage_device(arch, plans))
+            fn = sd.jitted(1, stage.out_size, stage.nprobs)
+            ops = [jax.device_put(a) for a in (
+                stage.chunks[0], stage.lanes[0], stage.prefill[0])]
+            t_h2d, inbuf = timed(
+                lambda: jax.device_put(stage.inbuf).block_until_ready())
+            jax.block_until_ready(fn(inbuf, *ops))  # warm
+            t_kernel, (out, err) = timed(
+                lambda: jax.block_until_ready(fn(inbuf, *ops)))
+            if int(np.asarray(err).any()):
+                raise AssertionError(f"{label}: lane error")
+            t_d2h, _ = timed(lambda: np.asarray(fn(inbuf, *ops)[0]))
+            log(f"    {label}: plan_xz {t_plan * 1e3:.2f} ms, stage "
+                f"{t_stage * 1e3:.2f} ms, input to card "
+                f"{t_h2d * 1e3:.2f} ms ({stage.inbuf.size} B), kernel "
+                f"{t_kernel * 1e3:.2f} ms, kernel + output to host "
+                f"{t_d2h * 1e3:.2f} ms ({stage.out_size} B), "
+                f"{sum(stage.lane_counts)} lanes  [{smoke.card}]")
+
+    smoke.phase("device path breakdown: plan, stage, transfers, kernel",
+                breakdown)
 
     def xla_lane():
         # the plain XLA lane decoder on a prefix of each class, against

@@ -10,8 +10,9 @@ Three engines implement the same decode semantics:
 
 ``LZMA_RS_TPU_BACKEND`` selects one (``auto`` by default). ``auto``
 routes per stream (``runtime._resolve_auto_engine``): on a CUDA GPU a
-stream with enough lanes and output decodes on the device engine;
-otherwise the native host engine if built; otherwise spec. Raw
+stream with enough lanes and output, and no lane too long for one card
+thread, decodes on the device engine; otherwise the native host engine
+if built; otherwise spec. Raw
 single-stream LZMA prefers the host under ``auto`` (one stream = one
 lane = no parallelism for the card to exploit). All engines are
 cross-validated bit-for-bit in the test suite.

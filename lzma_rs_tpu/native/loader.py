@@ -16,10 +16,41 @@ from typing import Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_HERE, "liblzma_rs_tpu_native.so")
 _SRC = os.path.join(_HERE, "lzma_native.cpp")
+#: The segment decode core, shared with the device engine's handlers.
+_HEADER = os.path.join(_HERE, "lzma_segment.h")
 
 _lock = threading.Lock()
 _cached = None
 _tried = False
+
+
+class LrtChunk(ctypes.Structure):
+    """``lrt_seg::Chunk<uint64_t>`` (``lzma_segment.h``)."""
+
+    _fields_ = [
+        ("in_start", ctypes.c_uint64),
+        ("in_end", ctypes.c_uint64),
+        ("out_start", ctypes.c_uint64),
+        ("out_end", ctypes.c_uint64),
+        ("flags", ctypes.c_int32),
+        ("lc", ctypes.c_int32),
+        ("lp", ctypes.c_int32),
+        ("pb", ctypes.c_int32),
+    ]
+
+
+#: Chunk flag: the range coder must stop at the chunk's packed end
+#: (``lrt_seg::kExactEnd``; every LZMA2 chunk).
+EXACT_END = 2
+
+
+class SegmentError(Exception):
+    """A segment failed in the shared decode core; ``code`` is its
+    ``lrt_seg::kErr*`` value."""
+
+    def __init__(self, code: int):
+        super().__init__(f"segment decode error code {code}")
+        self.code = code
 
 
 class NativeLib:
@@ -61,18 +92,6 @@ class NativeLib:
         ]
         lib.lrt_free.restype = None
         lib.lrt_free.argtypes = [ctypes.c_void_p]
-
-        class LrtChunk(ctypes.Structure):
-            _fields_ = [
-                ("in_start", ctypes.c_uint64),
-                ("in_end", ctypes.c_uint64),
-                ("out_start", ctypes.c_uint64),
-                ("out_end", ctypes.c_uint64),
-                ("reset_state", ctypes.c_int32),
-                ("lc", ctypes.c_int32),
-                ("lp", ctypes.c_int32),
-                ("pb", ctypes.c_int32),
-            ]
 
         lib.lrt_lzma2_compress.restype = ctypes.c_int
         lib.lrt_lzma2_compress.argtypes = [
@@ -117,7 +136,6 @@ class NativeLib:
             ctypes.POINTER(ctypes.c_size_t),
         ]
 
-        self.LrtChunk = LrtChunk
         lib.lrt_lzma2_decode_segment.restype = ctypes.c_int
         lib.lrt_lzma2_decode_segment.argtypes = [
             ctypes.c_char_p,
@@ -126,7 +144,6 @@ class NativeLib:
             ctypes.c_int,
             ctypes.c_void_p,  # out (points into shared writable buffer)
             ctypes.c_size_t,
-            ctypes.c_char_p,
         ]
 
     def crc64_update(self, data, crc: int) -> int:
@@ -201,23 +218,21 @@ class NativeLib:
         return self._take(buf, n)
 
     def lzma2_decode_segment(self, data, chunks, out_view, out_cap) -> None:
-        """Decode one segment's chunk schedule into ``out_view`` (a ctypes
-        pointer into a shared output buffer). Raises on error."""
-        import ctypes
-
-        from lzma_rs_tpu.utils.errors import IoError, LzmaError
-
+        """Decode one LZMA2 segment's chunk schedule into ``out_view`` (a
+        ctypes pointer into a shared output buffer). ``chunks`` holds
+        ``(in_start, in_end, out_start, out_end, reset_state, lc, lp,
+        pb)`` tuples. Raises :class:`SegmentError` with the decode core's
+        error code; callers replay the stream sequentially for the
+        reference's message."""
         n = len(chunks)
-        arr = (self.LrtChunk * n)()
-        for i, c in enumerate(chunks):
-            arr[i] = self.LrtChunk(*c)
-        err = ctypes.create_string_buffer(512)
+        arr = (LrtChunk * n)()
+        for i, (i0, i1, o0, o1, reset, lc, lp, pb) in enumerate(chunks):
+            arr[i] = LrtChunk(i0, i1, o0, o1, reset | EXACT_END, lc, lp, pb)
         rc = self._lib.lrt_lzma2_decode_segment(
-            data, len(data), arr, n, out_view, out_cap, err
+            data, len(data), arr, n, out_view, out_cap
         )
         if rc != 0:
-            msg = err.value.decode("utf-8", "replace")
-            raise IoError(msg) if rc == 2 else LzmaError(msg)
+            raise SegmentError(rc)
 
     # -- incremental LZMA2 (chunk-granular streaming) ----------------------
 
@@ -311,21 +326,13 @@ def _pgo_train(so_path: str) -> None:
                              ctypes.byref(n), ctypes.byref(consumed), err)
         lib.lrt_free(buf)
 
-    # Also train the production decode entrypoint (FlatOut segments +
-    # the register-local fast loop): scan the LZMA2 chunk headers and
-    # drive lrt_lzma2_decode_segment over the whole stream.
-    class _Chunk(ctypes.Structure):
-        _fields_ = [
-            ("in_start", ctypes.c_uint64), ("in_end", ctypes.c_uint64),
-            ("out_start", ctypes.c_uint64), ("out_end", ctypes.c_uint64),
-            ("reset_state", ctypes.c_int32), ("lc", ctypes.c_int32),
-            ("lp", ctypes.c_int32), ("pb", ctypes.c_int32),
-        ]
-
+    # Also train the production decode entrypoint (the shared segment
+    # core, lzma_segment.h): scan the LZMA2 chunk headers and drive
+    # lrt_lzma2_decode_segment over the whole stream.
     lib.lrt_lzma2_decode_segment.restype = ctypes.c_int
     lib.lrt_lzma2_decode_segment.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(_Chunk),
-        ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(LrtChunk),
+        ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t,
     ]
     chunks, pos, out_pos = [], 0, 0
     lc = lp = pb = 0
@@ -352,17 +359,17 @@ def _pgo_train(so_path: str) -> None:
         if pos + hdr + packed > len(comp):
             ok = False
             break
-        chunks.append(_Chunk(pos + hdr, pos + hdr + packed, out_pos,
-                             out_pos + unpacked, 1 if reset else 0,
-                             lc, lp, pb))
+        chunks.append(LrtChunk(pos + hdr, pos + hdr + packed, out_pos,
+                               out_pos + unpacked,
+                               (1 if reset else 0) | EXACT_END, lc, lp, pb))
         out_pos += unpacked
         pos += hdr + packed
     if ok and chunks:
-        arr = (_Chunk * len(chunks))(*chunks)
+        arr = (LrtChunk * len(chunks))(*chunks)
         out = ctypes.create_string_buffer(out_pos)
         for _ in range(3):
             lib.lrt_lzma2_decode_segment(comp, len(comp), arr, len(chunks),
-                                         out, out_pos, err)
+                                         out, out_pos)
 
 
 def build(force: bool = False) -> bool:
@@ -373,7 +380,8 @@ def build(force: bool = False) -> bool:
     if not os.path.exists(_SRC):
         return False
     if os.path.exists(_SO) and not force:
-        if os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+        newest = max(os.path.getmtime(_SRC), os.path.getmtime(_HEADER))
+        if os.path.getmtime(_SO) >= newest:
             return True
 
     base = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
@@ -471,7 +479,8 @@ def build_instrumented(force: bool = False) -> bool:
     if not os.path.exists(_SRC) or not os.path.exists(_COV_SRC):
         return False
     if os.path.exists(_SO_COV) and not force:
-        newest = max(os.path.getmtime(_SRC), os.path.getmtime(_COV_SRC))
+        newest = max(os.path.getmtime(_SRC), os.path.getmtime(_COV_SRC),
+                     os.path.getmtime(_HEADER))
         if os.path.getmtime(_SO_COV) >= newest:
             return True
     import tempfile

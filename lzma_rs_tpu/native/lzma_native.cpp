@@ -11,7 +11,9 @@
 //
 // Exposed C ABI (see native/loader.py):
 //   lrt_crc64_update, lrt_lzma_decode, lrt_lzma2_decode,
-//   lrt_stream_* (incremental push-style decoding), lrt_free.
+//   lrt_lzma2_decode_segment (through lzma_segment.h, the device
+//   engine's decode core), lrt_stream_* (incremental push-style
+//   decoding), lrt_free.
 
 #include <cmath>
 #include <cstdint>
@@ -21,6 +23,8 @@
 #include <string>
 #include <type_traits>
 #include <vector>
+
+#include "lzma_segment.h"
 
 namespace {
 
@@ -338,20 +342,20 @@ struct OutputBuffer {
 };
 
 // ---------------------------------------------------------------------------
-// Flat output: decodes straight into a caller-provided, exactly-sized
-// buffer (LZMA2 headers give exact unpacked sizes up front). This is the
-// hot path for block/segment-parallel decode: no window abstraction, no
-// per-byte capacity checks, memcpy for non-overlapping matches.
+// Flat output: a view of an exactly-sized buffer that the register-local
+// fast loop (process_fast) decodes into; the sequential LZMA2 and raw
+// LZMA paths run it over their flat accum window. No window abstraction,
+// no per-byte capacity checks, memcpy for non-overlapping matches.
+// (Segment-parallel decode runs lzma_segment.h instead.)
 // ---------------------------------------------------------------------------
 
 struct FlatOut {
-  uint8_t* base;     // segment output start
-  uint64_t pos = 0;  // == accum.len (bytes since segment/dict-reset start)
-  uint64_t cap = 0;  // segment capacity (sum of chunk unpacked sizes)
+  uint8_t* base;     // output start (the dict-reset point)
+  uint64_t pos = 0;  // == accum.len (bytes since the dict reset)
+  uint64_t cap = 0;  // writable capacity
   uint64_t len = 0;  // alias of pos for the shared decode templates
   // distances beyond the declared dictionary are format errors when the
-  // caller sets this (raw-LZMA flat path; lzbuffer.rs checks first);
-  // segment decode leaves it unbounded (planner-validated schedules)
+  // caller sets this (raw-LZMA flat path; lzbuffer.rs checks first)
   uint64_t dict_limit = UINT64_MAX;
 
   uint8_t last_or(uint8_t lit) const { return pos ? base[pos - 1] : lit; }
@@ -644,7 +648,7 @@ struct DecoderState {
     return e.ok();
   }
 
-  // Register-local fast symbol loop for the flat (segment) output path.
+  // Register-local fast symbol loop for the flat output path.
   //
   // The generic per-symbol path re-reads the range coder and decoder
   // state through memory after every output write: FlatOut stores
@@ -1029,16 +1033,6 @@ struct DecoderState {
           partial_len = remaining;
           rc.pos = rc.end;
           return true;
-        }
-        if constexpr (std::is_same<OUT, FlatOut>::value) {
-          // Bulk of the segment: register-local fast loop (see
-          // process_fast above). Exits at the input/output tail; the
-          // generic per-symbol path below finishes the edges.
-          if (!partial_mode && has_unpacked && o.len < unpacked_size &&
-              o.len < o.cap && remaining >= 2 * kMaxRequiredInput) {
-            if (!process_fast(o, rc, e, unpacked_size)) return false;
-            continue;  // re-check termination with updated o.len/rc
-          }
         }
         if constexpr (std::is_same<OUT, OutputBuffer>::value) {
           // Flat accum: run the same fast loop over a FlatOut view of
@@ -2803,70 +2797,22 @@ int lrt_lzma_encode_body(const char* data, size_t n, int write_eos,
 }
 
 // Segment-parallel decode: one dict-reset segment = a chunk schedule that
-// decodes into a caller-provided flat buffer (offsets segment-relative).
+// decodes into a caller-provided flat buffer (offsets segment-relative),
+// through the decode core the device engine runs (lzma_segment.h).
 // Thread-safe (no shared mutable state); Python drives one call per worker
 // thread, writing disjoint regions of one shared output buffer (ctypes
-// releases the GIL around the call).
-struct LrtChunk {
-  uint64_t in_start;   // absolute offset of chunk payload (rc-init byte)
-  uint64_t in_end;
-  uint64_t out_start;  // segment-relative
-  uint64_t out_end;
-  int32_t reset_state;
-  int32_t lc, lp, pb;
-};
+// releases the GIL around the call). Returns the core's error code
+// (lrt_seg::kErr*); callers replay a failed stream sequentially for the
+// reference's message.
+typedef lrt_seg::Chunk<uint64_t> LrtChunk;
 
 int lrt_lzma2_decode_segment(const char* data, size_t n,
                              const LrtChunk* chunks, int nchunks,
-                             char* out, size_t out_cap, char* err_buf) {
-  const uint8_t* in = reinterpret_cast<const uint8_t*>(data);
-  FlatOut o;
-  o.base = reinterpret_cast<uint8_t*>(out);
-  o.cap = out_cap;
-  DecoderState st;
-  st.init(0, 0, 0);
-  bool first = true;
-  for (int i = 0; i < nchunks; i++) {
-    const LrtChunk& c = chunks[i];
-    if (c.reset_state || first) {
-      st.init(c.lc, c.lp, c.pb);
-    } else {
-      st.lc = c.lc;  // props can only change with a state reset, but keep
-      st.lp = c.lp;  // the schedule authoritative
-      st.pb = c.pb;
-    }
-    first = false;
-    o.pos = c.out_start;  // uncompressed chunks were prefilled by the host
-    o.len = o.pos;
-    st.has_unpacked = true;
-    st.unpacked_size = c.out_end;
-    if (c.in_end > n || c.in_start > c.in_end) {
-      Err e{2, kEofMsg};
-      set_err(err_buf, e);
-      return e.code;
-    }
-    RangeDecoder rc{in, size_t(c.in_start), size_t(c.in_end)};
-    Err ie;
-    if (!rc.init(ie)) {
-      Err w{1, std::string("LZMA input too short: ") + ie.msg};
-      set_err(err_buf, w);
-      return 1;
-    }
-    Err e;
-    if (!st.process_mode(o, rc, false, e)) {
-      set_err(err_buf, e);
-      return e.code;
-    }
-    if (rc.pos != rc.end) {
-      // the reference reads the next chunk header where the range coder
-      // stopped; a chunk that stops early is corrupt (callers replay the
-      // stream sequentially for the reference's own error)
-      Err w{1, "LZMA2 chunk ended before its packed size"};
-      set_err(err_buf, w);
-      return 1;
-    }
-  }
-  return 0;
+                             char* out, size_t out_cap) {
+  uint16_t probs[lrt_seg::kLiteral + (0x300 << 4)];
+  return lrt_seg::decode_segment<uint64_t>(
+      reinterpret_cast<const uint8_t*>(data), n, chunks, nchunks,
+      reinterpret_cast<uint8_t*>(out), out_cap, UINT64_MAX, probs);
 }
 
 // ---------------------------------------------------------------------------

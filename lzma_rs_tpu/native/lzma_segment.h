@@ -1,20 +1,20 @@
 // One LZMA2 dict-reset segment, decoded into a flat output buffer.
 //
-// This is the decode core the device engine runs: the CUDA kernel
-// (segment_cuda.cu, one segment per thread) and the CPU XLA FFI handler
-// (segment_cpu.cc) both compile this header, so the CPU tests exercise
-// the card's symbol logic. It has no allocation, no exceptions and no
-// strings: an error is a numeric code, and the runtime replays the
-// stream on the host engine to produce the reference's exact message.
+// The one segment decoder of the repo: the CUDA kernel (segment_cuda.cu,
+// one segment per thread), the CPU XLA FFI handler (segment_cpu.cc) and
+// the native host engine (lzma_native.cpp, lrt_lzma2_decode_segment) all
+// compile this header, so a fix to the symbol loop lands in every engine
+// at once. It has no allocation, no exceptions and no strings: an error is
+// a numeric code, and the runtime replays the stream sequentially on the
+// host to produce the reference's exact message.
 //
-// Semantics follow the native flat decoder (lzma_native.cpp,
-// DecoderState::process_fast over FlatOut): one chunk decodes until the
-// output reaches its declared end; every input byte read is bounds
-// checked; matches are checked against the output written so far, the
-// dictionary limit and the chunk end. An LZMA2 chunk must also end its
-// range coder exactly at its packed end: the reference reads the next
-// chunk header where the range coder stopped, so a chunk that stops
-// early is a different (corrupt) stream, and the host replays it.
+// Semantics: one chunk decodes until the output reaches its declared end;
+// every input byte read is bounds checked; matches are checked against
+// the output written so far, the dictionary limit and the chunk end. An
+// LZMA2 chunk must also end its range coder exactly at its packed end:
+// the reference reads the next chunk header where the range coder
+// stopped, so a chunk that stops early is a different (corrupt) stream,
+// and the host replays it.
 
 #pragma once
 
@@ -40,11 +40,20 @@ enum : int32_t {
   kErrEnd = 7,       // range coder stopped before the chunk's packed end
 };
 
-// Chunk table row: 8 int32 fields. kFlags: kResetState (reset the
-// probabilities, state and reps first) | kExactEnd (LZMA2: the range
-// coder must stop at kInEnd).
-enum { kInStart, kInEnd, kOutStart, kOutEnd, kFlags, kLc, kLp, kPb,
-       kChunkFields };
+// One chunk of a segment. Input offsets are absolute in the segment's
+// input buffer, output offsets relative to the segment's output. `Off`
+// is uint32_t on the card (the device table's rows are 8 int32 fields,
+// laid out as Chunk<uint32_t>) and uint64_t in the host engine. flags:
+// kResetState (reset the probabilities, state and reps first) |
+// kExactEnd (LZMA2: the range coder must stop at in_end).
+template <typename Off>
+struct Chunk {
+  Off in_start, in_end, out_start, out_end;
+  int32_t flags, lc, lp, pb;
+};
+constexpr int kChunkFields = 8;  // int32 fields of one device table row
+static_assert(sizeof(Chunk<uint32_t>) == kChunkFields * sizeof(int32_t),
+              "device chunk rows are Chunk<uint32_t>");
 enum : int32_t { kResetState = 1, kExactEnd = 2 };
 
 // Probability layout: the fixed-size tables first, then the literal
@@ -66,31 +75,32 @@ constexpr uint32_t kLenChoice = 0, kLenChoice2 = 1, kLenLow = 2,
 
 LRT_HD uint32_t probs_count(int lclp) { return kLiteral + (0x300u << lclp); }
 
-// Decodes the chunks of one segment. `chunks` holds `n` rows of
-// kChunkFields int32: input offsets are absolute in `in` (`in_size`
-// bytes), output offsets are relative to `out` (`out_cap` bytes
-// writable). `probs` has room for probs_count(lc + lp) entries of the
-// segment's largest lc + lp. `dict_limit` bounds match distances (raw
-// LZMA); LZMA2 passes 0xFFFFFFFF.
-LRT_HD int32_t decode_segment(const uint8_t* in, uint32_t in_size,
-                              const int32_t* chunks, int n, uint8_t* out,
-                              uint32_t out_cap, uint32_t dict_limit,
-                              uint16_t* probs) {
+// Decodes the `n` chunks of one segment from `in` (`in_size` bytes)
+// into `out` (`out_cap` bytes writable). `probs` has room for
+// probs_count(lc + lp) entries of the segment's largest lc + lp.
+// `dict_limit` bounds match distances (raw LZMA); LZMA2 passes the
+// largest Off.
+template <typename Off>
+LRT_HD int32_t decode_segment(const uint8_t* in, Off in_size,
+                              const Chunk<Off>* chunks, int n, uint8_t* out,
+                              Off out_cap, Off dict_limit, uint16_t* probs) {
   uint32_t state = 0, r0 = 0, r1 = 0, r2 = 0, r3 = 0;
   uint32_t probs_ready = 0;  // entries initialised at the last reset
   for (int ci = 0; ci < n; ci++) {
-    const int32_t* c = chunks + ci * kChunkFields;
-    uint32_t ipos = uint32_t(c[kInStart]);
-    const uint32_t iend = uint32_t(c[kInEnd]);
-    uint32_t opos = uint32_t(c[kOutStart]);
-    const uint32_t oend = uint32_t(c[kOutEnd]);
-    if (c[kInStart] < 0 || c[kOutStart] < 0 || iend > in_size ||
-        ipos > iend || oend > out_cap || opos > oend)
+    const Chunk<Off>& c = chunks[ci];
+    Off ipos = c.in_start;
+    const Off iend = c.in_end;
+    Off opos = c.out_start;
+    const Off oend = c.out_end;
+    if (iend > in_size || ipos > iend || oend > out_cap || opos > oend)
       return kErrTable;
     if (iend - ipos < 5) return kErrShort;
-    const int lc = c[kLc], lp = c[kLp], pb = c[kPb];
+    const int lc = c.lc, lp = c.lp, pb = c.pb;
+    if (lc < 0 || lp < 0 || pb < 0 || lc > 8 || lp > 4 || pb > 4 ||
+        lc + lp > 4)
+      return kErrTable;
     const uint32_t need = probs_count(lc + lp);
-    if ((c[kFlags] & kResetState) || ci == 0) {
+    if ((c.flags & kResetState) || ci == 0) {
       for (uint32_t i = 0; i < need; i++) probs[i] = 0x400;
       probs_ready = need;
       state = 0;
@@ -308,7 +318,7 @@ LRT_HD int32_t decode_segment(const uint8_t* in, uint32_t in_size,
 #undef LRT_TREE
 #undef LRT_BIT
 #undef LRT_NORM
-    if ((c[kFlags] & kExactEnd) && ipos != iend) return kErrEnd;
+    if ((c.flags & kExactEnd) && ipos != iend) return kErrEnd;
   }
   return kOk;
 }

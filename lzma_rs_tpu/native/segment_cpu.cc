@@ -54,9 +54,12 @@ ffi::Error SegmentDecodeCpu(ffi::Buffer<ffi::U8> in,
       e[l] = lrt_seg::kErrTable;
       continue;
     }
-    e[l] = lrt_seg::decode_segment(
-        src, in_size, chunks.typed_data() + l * K * lrt_seg::kChunkFields, n,
-        dst + base, out_size - uint32_t(base), uint32_t(ln[3 * l + 2]), probs);
+    e[l] = lrt_seg::decode_segment<uint32_t>(
+        src, in_size,
+        reinterpret_cast<const lrt_seg::Chunk<uint32_t>*>(
+            chunks.typed_data() + l * K * lrt_seg::kChunkFields),
+        n, dst + base, out_size - uint32_t(base), uint32_t(ln[3 * l + 2]),
+        probs);
   }
   return ffi::Error::Success();
 }

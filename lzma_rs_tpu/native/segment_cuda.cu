@@ -49,9 +49,11 @@ __global__ void segment_kernel(const uint8_t* in, uint32_t in_size,
     err[l] = lrt_seg::kErrTable;
     return;
   }
-  err[l] = lrt_seg::decode_segment(
-      in, in_size, chunks + l * K * lrt_seg::kChunkFields, n, out + base,
-      out_size - uint32_t(base), uint32_t(lanes[3 * l + 2]),
+  err[l] = lrt_seg::decode_segment<uint32_t>(
+      in, in_size,
+      reinterpret_cast<const lrt_seg::Chunk<uint32_t>*>(
+          chunks + l * K * lrt_seg::kChunkFields),
+      n, out + base, out_size - uint32_t(base), uint32_t(lanes[3 * l + 2]),
       scratch + l * int64_t(nprobs));
 }
 

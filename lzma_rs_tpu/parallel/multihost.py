@@ -183,6 +183,7 @@ def xz_decode_multihost(data: bytes, engine: str = "native") -> bytes:
     n_hosts = jax.process_count()
     host = jax.process_index()
 
+    from lzma_rs_tpu.native.loader import SegmentError
     from lzma_rs_tpu.parallel import runtime as rt
 
     if n_hosts == 1:
@@ -218,21 +219,26 @@ def xz_decode_multihost(data: bytes, engine: str = "native") -> bytes:
                 # per plan, so identical on every host (the collective
                 # schedule never depends on it)
                 eng = rt._resolve_auto_engine(data, [plan])
-            if eng == "native":
-                out = rt.execute_plan_native(data, [plan], threads=threads)
-            elif eng in ("device", "xla"):
+            if eng in ("native", "device", "xla"):
                 # Any device failure (a lane error on corrupt data, or a
                 # plan the device cannot take) falls back to the native
-                # engine, so errors keep reference parity like the
-                # single-host paths.
-                try:
-                    out = rt._decode_on_device(data, [plan], eng)
-                except rt._KernelError:
-                    out = None
+                # engine, and a native segment error to the block's
+                # sequential decode, so errors keep reference parity like
+                # the single-host paths.
+                out = None
+                if eng != "native":
+                    try:
+                        out = rt._decode_on_device(data, [plan], eng)
+                    except rt._KernelError:
+                        pass
                 if out is None:
-                    out = rt.execute_plan_native(
-                        data, [plan], threads=threads
-                    )
+                    try:
+                        out = rt.execute_plan_native(
+                            data, [plan], threads=threads
+                        )
+                    except SegmentError:
+                        end = s.payload_start + s.payload_len
+                        out = rt._host_lzma2(data[s.payload_start : end])
             else:
                 raise ValueError(
                     f"unknown engine {eng!r} (expected one of {rt.ENGINES})"

@@ -177,7 +177,7 @@ def _jitted_decoder():
 
 
 #: Micro-ops per while-loop iteration of the XLA lane decoder: 4 beat 1
-#: on an H100 on both 8 KiB and 64 KiB blocks (PERF.md, PR 1).
+#: on an H100 on both 8 KiB and 64 KiB blocks (PERF.md).
 LANE_UNROLL = 4
 
 
@@ -243,7 +243,10 @@ def execute_plan(data: bytes, plans: List[DecodePlan],
 
     st = stats_mod.current()
     if st is not None:
+        from lzma_rs_tpu.platform import device_platform
+
         st.engine = "xla"
+        st.platform = device_platform()
         st.lanes += len(lanes)
         st.chunks += int(nchunks.sum())
         st.prefill_bytes += sum(n for _, _, n in prefill)
@@ -638,12 +641,14 @@ def execute_plan_device(data: bytes, plans: List[DecodePlan]) -> bytes:
     import jax.numpy as jnp
 
     from lzma_rs_tpu.ops import segment_decoder as sd
+    from lzma_rs_tpu.platform import device_platform
     from lzma_rs_tpu.utils import stats as stats_mod
 
     stage = stage_device(data, plans, _n_local_devices())
     st = stats_mod.current()
     if st is not None:
         st.engine = "device"
+        st.platform = device_platform()
         st.lanes += sum(stage.lane_counts)
         st.chunks += int(stage.lanes[..., 0].sum())
         st.prefill_bytes += sum(n for p in plans for _, _, n in p.prefill)
@@ -695,12 +700,19 @@ ENGINES = ("auto", "native", "device", "xla")
 #: host, where a launch's fixed cost is not repaid.
 AUTO_MIN_LANES = 64
 AUTO_MIN_OUT = 1 << 20
+#: ... and no lane (dict-reset segment) longer than this. One card
+#: thread decodes a whole lane at a few MB/s, so long lanes bound the
+#: kernel: on an H100, 64 KiB lanes decoded as fast as or faster than on
+#: the host engine, 256 KiB lanes 4% slower, 1 MiB lanes 2.2x slower
+#: (PERF.md).
+AUTO_MAX_LANE_OUT = 64 << 10
 
 
 def _resolve_auto_engine(data: bytes, plans: List[DecodePlan]) -> str:
     """``auto``: the device engine on a CUDA GPU for enough lanes and
-    output (:data:`AUTO_MIN_LANES`, :data:`AUTO_MIN_OUT`), else native.
-    The size rule comes first so small host decodes never import JAX."""
+    output (:data:`AUTO_MIN_LANES`, :data:`AUTO_MIN_OUT`) and lanes no
+    longer than :data:`AUTO_MAX_LANE_OUT`, else native. The size rules
+    come first so small host decodes never import JAX."""
     n_lanes = sum(len(p.lanes) for p in plans)
     total_out = sum(p.total_out for p in plans)
     if n_lanes < AUTO_MIN_LANES or total_out < AUTO_MIN_OUT:
@@ -708,6 +720,11 @@ def _resolve_auto_engine(data: bytes, plans: List[DecodePlan]) -> str:
             f"auto->native: small workload ({n_lanes} lanes, "
             f"{total_out} B out)"
         )
+        return "native"
+    longest = max(lane.out_end[-1] - lane.seg_base
+                  for p in plans for lane in p.lanes)
+    if longest > AUTO_MAX_LANE_OUT:
+        _record_fallback(f"auto->native: long lanes (longest {longest} B)")
         return "native"
     from lzma_rs_tpu.platform import has_cuda
 
@@ -732,6 +749,16 @@ def _decode_on_device(data: bytes, plans: List[DecodePlan], engine: str
     """Run ``plans`` on a device engine ("device" or "xla"). Returns None
     when the device engine cannot take them (the reason is recorded);
     raises :class:`_KernelError` on a lane error."""
+    # A truncated stream declares its last chunk past the input. Both
+    # device engines see a padded input buffer, so this is caught here,
+    # as lrt_seg::kErrEof (2), and the host replays the stream.
+    n = len(data)
+    lanes = [lane for p in plans for lane in p.lanes]
+    for i, lane in enumerate(lanes):
+        if lane.in_end[-1] > n:
+            raise _KernelError(i, 2)
+    if any(s + k > n for p in plans for s, _, k in p.prefill):
+        raise _KernelError(-1, 2)
     if engine == "xla":
         return execute_plan(data, plans)
     reason = device_unsupported(data, plans)

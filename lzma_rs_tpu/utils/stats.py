@@ -38,6 +38,9 @@ class BlockStat:
 @dataclasses.dataclass
 class DecodeStats:
     engine: str = ""
+    #: Where a device engine ran: "cuda" on a GPU, "cpu" for the CPU
+    #: handler of the same decode core (tests); empty for host engines.
+    platform: str = ""
     packed_bytes: int = 0
     unpacked_bytes: int = 0
     lanes: int = 0

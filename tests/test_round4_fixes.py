@@ -104,6 +104,24 @@ class TestAutoRule:
             "small workload" in f for f in st.fallbacks
         )
 
+    @pytest.mark.parametrize(
+        "n_lanes,seg_len,want",
+        [
+            (1024, 64 << 10, "device"),         # lanes at the length limit
+            (1024, (64 << 10) + 1, "native"),   # one byte longer
+            (256, 256 << 10, "native"),         # 256 KiB blocks
+            (64, 1 << 20, "native"),            # 1 MiB blocks: host faster
+        ],
+    )
+    def test_long_lane_rule(self, monkeypatch, n_lanes, seg_len, want):
+        monkeypatch.setattr(platform, "has_cuda", lambda: True)
+        with stats_mod.collect() as st:
+            got = runtime._resolve_auto_engine(b"", _plans(n_lanes, seg_len))
+        assert got == want
+        assert (want == "native") == any(
+            "long lanes" in f for f in st.fallbacks
+        )
+
 
 class TestLaneKernelQuarantine:
     def test_explicit_device_without_gpu_runs_cpu_handler(self, monkeypatch):
@@ -113,6 +131,7 @@ class TestLaneKernelQuarantine:
             out = runtime.xz_decode(arch, engine="device")
         assert out == data
         assert st.engine == "device"
+        assert st.platform == "cpu"  # not a GPU measurement
         assert st.fallbacks == []
 
     def test_large_blocks_stay_on_device(self, monkeypatch):

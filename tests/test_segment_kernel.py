@@ -215,6 +215,37 @@ class TestErrorCodes:
         assert _op(s, [bad])[1] == 6
         assert _op(s, [row], out_size=len(data) - 1)[1] == 6
 
+    @pytest.mark.parametrize("case", ["ok", "short", "truncated", "table"])
+    def test_native_engine_runs_the_same_core(self, case):
+        # the host engine's segment decode is the same lzma_segment.h:
+        # the same rows give the same code and output as the ffi_call
+        import ctypes
+
+        from lzma_rs_tpu.native import loader
+
+        data = read_ref("foo.txt")[:2000]
+        s, row = _one_chunk(data)
+        if case == "short":
+            row[1] = row[0] + 4
+        elif case == "truncated":
+            row[1] = row[0] + (row[1] - row[0]) // 2
+        elif case == "table":
+            row[1] = len(s) + 100
+        want_out, want_code = _op(s, [row])
+        assert (want_code == 0) == (case == "ok")
+        buf = ctypes.create_string_buffer(len(data))
+        code = 0
+        try:
+            loader.load().lzma2_decode_segment(
+                s, [row[:4] + [row[4] & 1] + row[5:]], ctypes.addressof(buf),
+                len(data),
+            )
+        except loader.SegmentError as e:
+            code = e.code
+        assert code == want_code
+        if case == "ok":
+            assert buf.raw == want_out == data
+
     def test_corrupt_stream_replays_on_host(self):
         data = read_ref("foo.txt")[:20000]
         s = bytearray(_rawlzma2(data))
@@ -282,6 +313,27 @@ def test_chunk_ending_early_replays_for_reference_result(engine):
     end = first.data_off + first.packed_size
     stream[end:end] = b"\x03"
     stream = bytes(stream)
+
+    def run(fn):
+        try:
+            return ("ok", fn())
+        except Exception as e:  # noqa: BLE001 - compare messages
+            return ("err", type(e).__name__, str(e))
+
+    want = run(lambda: Lzma2Decoder().decompress(ByteCursor(stream)))
+    assert want[0] == "err"
+    assert run(lambda: runtime.lzma2_decode(stream, engine=engine)) == want
+
+
+@pytest.mark.parametrize("engine", ["device", "native", "xla"])
+@pytest.mark.parametrize("cut", range(1, 9))
+def test_truncated_stream_raises_reference_error(engine, cut):
+    """A multi-segment stream cut short: the last chunk's declared packed
+    end lies past the input. The staged input is padded, so the device
+    engines must not read the padding as the missing bytes."""
+    d1 = read_ref("foo.txt")[:3000]
+    d2 = read_ref("foo.txt")[3000:7000]
+    stream = (_rawlzma2(d1)[:-1] + _rawlzma2(d2))[:-cut]
 
     def run(fn):
         try:
